@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the 100k-triangle benchmark scene rendered
-by `integrators.pt_rgb.render_film_frames_merged` at 512x512 — and holds
-its CUDA kernel against the kernel's plain PyTorch version.  Phases, each
+Drives the port's two paths — the 100k-triangle benchmark scene rendered
+by `integrators.pt_rgb.render_film_frames_merged` at 512x512, and the
+Veach MIS scene rendered by `render_film_frames` with NEE (the
+reference's veach_pt golden path) — and holds the CUDA kernel against
+its plain PyTorch version in every mode the paths use.  Phases, each
 printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -19,10 +21,18 @@ printing its own lines; any failure exits non-zero:
      frames in merged groups of 16 with the bench schedule; zero overflow
      kills, a finite non-negative HDR and kernel launches > 0;
   5. the same 32^2 render on CUDA and on the CPU (plain version) from one
-     seed, compared pixel by pixel.
+     seed, compared pixel by pixel;
+  6. the Veach scene on CUDA: kernel vs plain on two sorted-mode
+     wavefronts of a 512^2 frame — bounce 1 of the exact path and the
+     camera bounce's NEE shadow rays — with phase 3's bar;
+  7. veach_pt: 512^2, max depth 15, NEE, exact path, VEACH_FRAMES frames
+     in one render_film_frames call; zero overflow kills, a finite
+     non-negative HDR with mean > 0, kernel launches > 0, ms/frame;
+  8. the same 32^2 Veach render on CUDA and on the CPU, as in phase 5.
 
-The next-to-last line is a JSON object describing the kernel; the last
-line is {"ok": true, "device": {...}}.  Without CUDA, or without the
+The next-to-last line is a JSON object describing the kernel (launches
+summed over both paths' counted runs, max_abs_err the worst over every
+compared wavefront); the last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
@@ -37,7 +47,8 @@ KF = 16          # frames per dispatch
 GROUP = 16       # frames per merged group
 TIMED_DISPATCHES = 2
 DEEP_FRAMES = 2  # frames whose compacted carries form the deep wavefront
-SMALL = 32       # phase 5 film size
+SMALL = 32       # phase 5 and 8 film size
+VEACH_FRAMES = 8
 T_RTOL = 1e-5
 PRIM_TIE_FRAC = 1e-3
 
@@ -94,28 +105,6 @@ def phase_build():
             log(f"[2 build] ptxas: {line.strip()}")
 
 
-def _wavefront_inputs(scene, o, d, shared_origin=None):
-    """Padded kernel inputs, built exactly as trace_clustered builds them."""
-    import torch
-
-    from ti_raytrace_tpu_torch.ops import cluster_trace as ct
-
-    N = o.shape[1]
-    n_pad = -(-N // ct.TILE) * ct.TILE
-    o_p = torch.nn.functional.pad(o, (0, n_pad - N)).contiguous()
-    d_p = torch.nn.functional.pad(d, (0, n_pad - N)).contiguous()
-    cb = scene.cluster_bounds
-    nc = cb.shape[1]
-    if shared_origin is not None:
-        order = ct._point_order(cb, nc, shared_origin)
-        tri = ct._origin_mt_table(scene.cluster_tri, shared_origin)
-    else:
-        cent = o_p.reshape(3, n_pad // ct.TILE, ct.TILE).mean(dim=2).T
-        order = ct._tile_order_from_cent(cent, cb, nc)
-        tri = scene.cluster_tri
-    return (o_p, d_p, N, cb, order, tri, shared_origin is not None)
-
-
 def _deep_wavefront(scene, spec, cam, key):
     """A merged deep-bounce wavefront of the port's own path: DEEP_FRAMES
     frames' prologues (bounce 0, flush, compact to the phase-1 width),
@@ -143,7 +132,7 @@ def _deep_wavefront(scene, spec, cam, key):
     return carry["origin"].contiguous(), carry["direction"].contiguous()
 
 
-def _compare(name, inputs, sync):
+def _compare(name, inputs, sync, tag="[3 kernel]"):
     """Kernel vs plain version on one wavefront; returns (max |dt|,
     kernel ms, plain ms)."""
     import torch
@@ -164,7 +153,7 @@ def _compare(name, inputs, sync):
     ties_ok = bool(((t_k - t_p).abs()[mism] <= 1e-5).all())
     miss_ok = bool((p_k[~hit] == p_p[~hit]).all())
     duv = float(torch.maximum((u_k - u_p)[:n].abs().max(), (v_k - v_p)[:n].abs().max()))
-    log(f"[3 kernel] {name}: {n} lanes, {n_hit} hits; max|dt| {max_dt:.3e} "
+    log(f"{tag} {name}: {n} lanes, {n_hit} hits; max|dt| {max_dt:.3e} "
         f"(rtol {T_RTOL} ok={t_ok}); prim mismatch {frac:.2e} of hits "
         f"(ties ok={ties_ok}); misses equal={miss_ok}; max|duv| {duv:.3e}; "
         f"visited equal={bool((vis_k == vis_p).all())} "
@@ -180,13 +169,14 @@ def phase_kernel(scene, spec, cam, sync):
 
     from ti_raytrace_tpu_torch.core import rng
     from ti_raytrace_tpu_torch.integrators import pt_rgb
+    from ti_raytrace_tpu_torch.ops.cluster_trace import kernel_inputs
 
     key = rng.PRNGKey(0)
     o, d, _ = pt_rgb._camera_rays(spec, cam, 1, rng.split(key)[0])
-    cam_in = _wavefront_inputs(scene, o, d, shared_origin=o[:, 0].contiguous())
+    cam_in = kernel_inputs(scene, o, d, False, shared_origin=o[:, 0].contiguous())[0]
     err_c, ms_c, plain_c = _compare("camera 512^2 (shared origin, origin-MT)", cam_in, sync)
     do, dd = _deep_wavefront(scene, spec, cam, key)
-    deep_in = _wavefront_inputs(scene, do, dd)
+    deep_in = kernel_inputs(scene, do, dd, False, tile_order=True)[0]
     err_d, ms_d, plain_d = _compare("merged deep bounce (per-tile order, generic MT)",
                                     deep_in, sync)
     del cam_in, deep_in
@@ -240,32 +230,136 @@ def phase_main_path(scene, spec, cam, cfg, sync):
     return launches
 
 
-def phase_small_parity(cfg):
+def _small_parity(tag, render):
+    """render(device) -> ((W, H, 3) HDR, overflow kills), on CUDA and on
+    the CPU (plain version); the two HDRs are compared pixel by pixel."""
     import numpy as np
-    import torch
-
-    from ti_raytrace_tpu_torch import film as film_mod
-    from ti_raytrace_tpu_torch.examples.scenes import benchmark_100k, make_camera
-    from ti_raytrace_tpu_torch.integrators import pt_rgb
 
     hdrs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
+        hdr, kills = render(dev)
+        hdrs[dev] = hdr.cpu().numpy()
+        log(f"{tag} {SMALL}^2 on {dev}: {time.perf_counter() - t0:.2f} s, "
+            f"overflow kills {kills}")
+    a, b = hdrs["cuda"], hdrs["cpu"]
+    close = np.isclose(a, b, rtol=1e-3, atol=1e-6).all(axis=-1).mean()
+    rel_mean = abs(a.mean() - b.mean()) / max(b.mean(), 1e-12)
+    log(f"{tag} pixels within rtol 1e-3: {close:.4f}; image means "
+        f"{a.mean():.6f} vs {b.mean():.6f} (rel {rel_mean:.2e})")
+    if close < 0.98 or rel_mean > 0.01 or not b.mean() > 0.0:
+        fail("the CUDA render disagrees with the CPU plain render")
+
+
+def phase_small_parity(cfg):
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.scenes import benchmark_100k, make_camera
+    from ti_raytrace_tpu_torch.integrators import pt_rgb
+
+    def render(dev):
         scene, _ = benchmark_100k(dev)
         spec, cam = make_camera(scene, cfg, SMALL, SMALL)
         fl, kills = pt_rgb.render_film_frames_merged(
             scene, spec, cam, film_mod.new_film(SMALL, SMALL, seed=3, device=dev),
             n_frames=2, group=2, compaction=cfg.compaction, pay_divisors=cfg.pay_divisors)
-        hdrs[dev] = fl.hdr.cpu().numpy()
-        log(f"[5 parity] {SMALL}^2 on {dev}: {time.perf_counter() - t0:.2f} s, "
-            f"overflow kills {kills}")
-    a, b = hdrs["cuda"], hdrs["cpu"]
-    close = np.isclose(a, b, rtol=1e-3, atol=1e-6).all(axis=-1).mean()
-    rel_mean = abs(a.mean() - b.mean()) / max(b.mean(), 1e-12)
-    log(f"[5 parity] pixels within rtol 1e-3: {close:.4f}; image means "
-        f"{a.mean():.6f} vs {b.mean():.6f} (rel {rel_mean:.2e})")
-    if close < 0.98 or rel_mean > 0.01:
-        fail("the CUDA render disagrees with the CPU plain render")
+        return fl.hdr, kills
+
+    _small_parity("[5 parity]", render)
+
+
+def _veach_wavefronts(scene, spec, cam):
+    """Two sorted-mode wavefronts of a 512^2 Veach frame, as the exact
+    path traces them: bounce 1 (the carry after the camera bounce) and
+    the camera bounce's NEE shadow rays, recorded at pt_rgb's call of
+    accel.trace."""
+    from ti_raytrace_tpu_torch.core import rng
+    from ti_raytrace_tpu_torch.integrators import pt_rgb
+
+    k_cam, k_path = rng.split(rng.PRNGKey(1))
+    o, d, _ = pt_rgb._camera_rays(spec, cam, 0, k_cam)
+    shadow = []
+    accel_trace = pt_rgb.trace
+
+    def recording_trace(scene, o, d, **kw):
+        shadow.append((o, d))
+        return accel_trace(scene, o, d, **kw)
+
+    pt_rgb.trace = recording_trace
+    try:
+        carry = pt_rgb._bounce(scene, pt_rgb._new_carry(o, d), rng.fold_in(k_path, 0),
+                               nee=True, shared_origin=o[:, 0])
+    finally:
+        pt_rgb.trace = accel_trace
+    if len(shadow) != 1:
+        fail(f"the camera bounce traced {len(shadow)} shadow wavefronts, not 1")
+    return (carry["origin"], carry["direction"]), shadow[0]
+
+
+def phase_veach_kernel(scene, spec, cam, sync):
+    import torch
+
+    from ti_raytrace_tpu_torch.ops.cluster_trace import kernel_inputs
+
+    (bo, bd), (so, sd) = _veach_wavefronts(scene, spec, cam)
+    errs, ms = [], []
+    for name, o, d in (("bounce 1 (sorted, per-tile order)", bo, bd),
+                       ("NEE shadow rays (sorted, per-tile order)", so, sd)):
+        err, ms_k, ms_p = _compare(name, kernel_inputs(scene, o, d, True)[0], sync,
+                                   tag="[6 veach kernel]")
+        errs.append(err)
+        ms.append((ms_k, ms_p))
+    torch.cuda.empty_cache()
+    return max(errs), ms
+
+
+def phase_veach_path(scene, spec, cam, cfg, sync):
+    import torch
+
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.integrators import pt_rgb
+    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+
+    nee = pt_rgb.has_nee_materials(scene)
+    if not nee:
+        fail("the Veach scene has no material that takes NEE")
+    fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
+    KERNEL.launches = 0  # count only this path's run
+    t0 = time.perf_counter()
+    fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=VEACH_FRAMES,
+                                          compaction=cfg.compaction, nee=nee)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = KERNEL.launches
+    hdr = fl.hdr
+    ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
+              and bool((hdr >= 0).all()) and float(hdr.mean()) > 0.0)
+    log(f"[7 veach] veach_pt {SIZE}^2, max depth {pt_rgb.MAX_DEPTH}, NEE, exact path: "
+        f"{VEACH_FRAMES} frames in {seconds:.2f} s = {seconds / VEACH_FRAMES * 1e3:.3f} "
+        f"ms/frame; overflow kills {kills}; kernel launches {launches}; "
+        f"hdr mean {float(hdr.mean()):.5f}")
+    if kills != 0:
+        fail(f"{kills} overflow kills on the veach_pt path")
+    if not ok_img:
+        fail("the veach_pt HDR is not a finite, non-negative (W, H, 3) image")
+    if launches == 0:
+        fail("the veach_pt path never launched the cluster_trace kernel")
+    return launches
+
+
+def phase_veach_parity(cfg):
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.scenes import make_camera, veach_bdpt
+    from ti_raytrace_tpu_torch.integrators import pt_rgb
+
+    def render(dev):
+        scene, _ = veach_bdpt(dev)
+        spec, cam = make_camera(scene, cfg, SMALL, SMALL)
+        fl, kills = pt_rgb.render_film_frames(
+            scene, spec, cam, film_mod.new_film(SMALL, SMALL, seed=3, device=dev),
+            n_frames=2, nee=True)
+        return fl.hdr, kills
+
+    _small_parity("[8 veach parity]", render)
 
 
 def main():
@@ -282,7 +376,7 @@ def main():
     sync = torch.cuda.synchronize
     t_start = time.perf_counter()
 
-    from ti_raytrace_tpu_torch.examples.scenes import benchmark_100k, make_camera
+    from ti_raytrace_tpu_torch.examples.scenes import benchmark_100k, make_camera, veach_bdpt
 
     phase_device()
     phase_build()
@@ -294,6 +388,21 @@ def main():
     max_err, ms, plain_ms = phase_kernel(scene, spec, cam, sync)
     launches = phase_main_path(scene, spec, cam, cfg, sync)
     phase_small_parity(cfg)
+    del scene
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    vscene, vcfg = veach_bdpt("cuda")
+    vspec, vcam = make_camera(vscene, vcfg, SIZE, SIZE)
+    log(f"[6 veach kernel] scene: {vscene.n_prims} prims, {vscene.n_lights} lights, "
+        f"{vscene.cluster_bounds.shape[1]} clusters, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    err_v, veach_ms = phase_veach_kernel(vscene, vspec, vcam, sync)
+    max_err = max(max_err, err_v)
+    launches += phase_veach_path(vscene, vspec, vcam, vcfg, sync)
+    phase_veach_parity(vcfg)
+    log("[6 veach kernel] kernel vs plain ms: " + "; ".join(
+        f"{k:.3f} vs {p:.3f}" for k, p in veach_ms))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

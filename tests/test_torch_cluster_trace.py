@@ -1,9 +1,11 @@
 """The port's cluster tracer (ti_raytrace_tpu_torch/ops/cluster_trace.py,
 plain PyTorch version on the CPU) against the JAX tracer with its Pallas
-kernel in interpret mode, in both modes of the render path:
+kernel in interpret mode, in the modes of the render path:
 
   * camera bounce: one shared origin, _point_order, origin-MT table;
-  * merged deep bounces: presorted rays, per-tile order, generic MT.
+  * merged deep bounces: presorted rays, per-tile order, generic MT;
+  * the sorted mode: coherence-sorted rays, per-tile order, unsorted
+    results (un-presorted deep bounces, NEE shadow rays).
 
 Tolerances: t within rtol = atol = 1e-5 on hit lanes; prim ids equal
 except on t-ties (at most 2% of hits, the tied t within 1e-5, as in
@@ -176,13 +178,29 @@ def test_cpu_dispatch_uses_plain_version(scenes):
     assert (prim >= 0).sum() > 50 and (t[prim < 0] == C.INF).all()
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_trace_sorted_mode_matches_reference(scenes, seed):
+    """Incoherent rays through the sorted mode (coherence sort, per-tile
+    order from the sorted tiles, unsort), with parked lanes; 600 lanes =
+    3 tiles, the last one partial."""
+    js, ts, host = scenes
+    o, d = _incoherent_rays(host, 600, seed)
+    o[:, 1::11] = 1e9  # parked lanes
+    ref = jct.trace_clustered(js, jnp.asarray(o), jnp.asarray(d), interpret=True,
+                              want_attr=True, sort_rays=True, sort_small=True)
+    port = tct.trace_clustered(ts, torch.from_numpy(o), torch.from_numpy(d), want_attr=True,
+                               sort_rays=True, sort_small=True)
+    hit = _assert_trace_parity(ref, port)
+    assert not hit[1::11].any()
+
+
 @pytest.mark.parametrize("kwargs", [
-    dict(sort_rays=True, sort_small=True),
+    dict(sort_rays=True, sort_small=True, tmax=torch.ones(40)),
     dict(sort_rays=False, tmax=torch.ones(40)),
     dict(sort_rays=False, active=torch.ones(40, dtype=torch.bool), cap_frac=0.5),
 ])
 def test_unported_modes_raise(scenes, kwargs):
     _, ts, host = scenes
     o, d = _incoherent_rays(host, 40, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': BDPT RGB"):
         tct.trace_clustered(ts, torch.from_numpy(o), torch.from_numpy(d), **kwargs)

@@ -49,20 +49,9 @@ def _rays(host, n, seed, shared):
 
 
 def _kernel_inputs(scene, o, d, shared):
-    n = o.shape[1]
-    n_pad = -(-n // ct.TILE) * ct.TILE
-    o_p = torch.nn.functional.pad(o, (0, n_pad - n)).contiguous()
-    d_p = torch.nn.functional.pad(d, (0, n_pad - n)).contiguous()
-    nc = scene.cluster_bounds.shape[1]
-    if shared:
-        origin = o[:, 0].contiguous()
-        order = ct._point_order(scene.cluster_bounds, nc, origin)
-        tri = ct._origin_mt_table(scene.cluster_tri, origin)
-    else:
-        cent = o_p.reshape(3, -1, ct.TILE).mean(dim=2).T
-        order = ct._tile_order_from_cent(cent, scene.cluster_bounds, nc)
-        tri = scene.cluster_tri
-    return (o_p, d_p, n, scene.cluster_bounds, order, tri, shared)
+    origin = o[:, 0].contiguous() if shared else None
+    return ct.kernel_inputs(scene, o, d, sort_rays=False, shared_origin=origin,
+                            tile_order=not shared)[0]
 
 
 @pytest.mark.gpu
@@ -79,6 +68,34 @@ def test_kernel_matches_plain_on_cuda(host, shared):
     assert ct.KERNEL.launches == before + 1
     want = ct.cluster_trace_plain(*args)
     assert int((want[1] >= 0).sum()) > 500
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_sorted_veach_wavefront():
+    """The sorted mode's operands on the Veach scene (bdpt.obj with smooth
+    normals): incoherent rays from inside the box, every 7th parked at
+    1e9, coherence-sorted, per-tile order from the sorted tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
+    from ti_raytrace_tpu_torch.examples.scenes import veach_host
+
+    host = veach_host()
+    scene = device_scene(host, "cuda")
+    rng = np.random.default_rng(5)
+    lo, hi = host["aabb_min"], host["aabb_max"]
+    o = lo + rng.random((6000, 3)) * (hi - lo)
+    d = lo + rng.random((6000, 3)) * (hi - lo) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[::7] = 1e9
+    o, d = (torch.from_numpy(x.T.astype(np.float32)).cuda() for x in (o, d))
+    args, perm = ct.kernel_inputs(scene, o, d, sort_rays=True)
+    assert perm is not None and args[4].shape[0] == args[0].shape[1] // ct.TILE
+    got = ct.KERNEL(*args)
+    torch.cuda.synchronize()
+    want = ct.cluster_trace_plain(*args)
+    assert int((want[1] >= 0).sum()) > 4000
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 

@@ -177,20 +177,54 @@ def test_overflow_kills_are_counted(scenes):
 
 
 def test_unported_paths_raise(scenes):
+    """What is still outside the port raises, naming its ROADMAP item: the
+    tracer's tmax and active/cap_frac modes (BDPT), the corrected
+    estimator, compaction calibration and the dense tracer."""
     from types import SimpleNamespace
 
     from ti_raytrace_tpu_torch import film as tfilm
-    from ti_raytrace_tpu_torch.accel import trace_shaded
+    from ti_raytrace_tpu_torch.accel import trace, trace_shaded
 
     _, ts, host = scenes
     _, (spec, cam) = _cameras(host, 16)
     fl = tfilm.new_film(16, 16)
-    with pytest.raises(NotImplementedError, match="NEE"):
-        tpt.render_film_frames_merged(ts, spec, cam, fl, 1, 1, SCHED, nee=True)
-    with pytest.raises(NotImplementedError, match="sorted"):  # exact mode sorts bounce 1
-        tpt.render_frame(ts, spec, cam, 1, fl.key, max_depth=2)
-    with pytest.raises(NotImplementedError, match="sorted"):  # bounce 1 unsorted
-        tpt.render_film_frames_merged(ts, spec, cam, fl, 1, 1, ((2, 2),))
+    o, d = torch.zeros(3, 40), torch.ones(3, 40)
+    with pytest.raises(NotImplementedError, match="BDPT"):
+        trace(ts, o, d, sort_small=True, tmax=torch.ones(40))
+    with pytest.raises(NotImplementedError, match="BDPT"):
+        trace(ts, o, d, active=torch.ones(40, dtype=torch.bool), cap_frac=0.5)
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': BDPT RGB"):
+        tpt.render_frame(ts, spec, cam, 1, fl.key, corrected=True, max_depth=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpt.calibrate_compaction(ts, spec, cam)
     with pytest.raises(NotImplementedError, match="dense tracer"):
         trace_shaded(SimpleNamespace(n_prims=36), torch.zeros(3, 4), torch.ones(3, 4))
+    with pytest.raises(NotImplementedError, match="dense tracer"):
+        trace(SimpleNamespace(n_prims=36), torch.zeros(3, 4), torch.ones(3, 4))
+    with pytest.raises(ValueError, match="compaction schedule"):
+        tpt.render_film_frames_merged(ts, spec, cam, fl, 1, 1, None)
     assert not tpt.has_nee_materials(ts)
+
+
+def test_nee_is_a_no_op_on_glass(scenes):
+    """On a scene of glass and emitters NEE adds nothing: no lane takes a
+    light sample (its shadow rays are all parked) and every emitter hit
+    ends a specular chain (MIS weight 1), so nee=True renders the same
+    film as nee=False, on the merged path and on the exact one."""
+    from ti_raytrace_tpu_torch import film as tfilm
+
+    _, ts, host = scenes
+    _, (spec, cam) = _cameras(host, 16)
+    for sched, merged in ((SCHED, True), (None, False)):
+        films = []
+        for nee in (False, True):
+            fl = tfilm.new_film(16, 16, seed=21)
+            if merged:
+                fl, ov = tpt.render_film_frames_merged(ts, spec, cam, fl, 2, 2, sched, nee,
+                                                       max_depth=4)
+            else:
+                fl, ov = tpt.render_film_frames(ts, spec, cam, fl, 1, sched, nee, max_depth=4)
+            assert ov == 0
+            films.append(fl.hdr.numpy())
+        assert films[0].mean() > 0.01
+        np.testing.assert_array_equal(films[1], films[0])

@@ -5,10 +5,13 @@ Same module layout and public names as the JAX package
 against.  This package imports torch and numpy only — never jax and never
 the JAX package — so it runs on a machine that has neither.
 
-Slice ported so far: the 100k-triangle progressive path tracer
+Slices ported so far: the 100k-triangle progressive path tracer
 (`examples/scenes.benchmark_100k` -> `integrators/pt_rgb.
-render_film_frames_merged`) with the cluster traversal as a hand-written
-CUDA kernel (`csrc/cluster_trace.cu`, wrapped by `ops/cluster_trace.py`).
-Everything outside the slice raises NotImplementedError naming its
-ROADMAP item.
+render_film_frames_merged`), and the Veach MIS scene under the path
+tracer with next-event estimation (`examples/scenes.veach_bdpt` ->
+`pt_rgb.render_film_frames`, exact path, `nee=True`; the golden gate
+`tools/golden.py --scene veach_pt`).  The cluster traversal is a
+hand-written CUDA kernel (`csrc/cluster_trace.cu`, wrapped by
+`ops/cluster_trace.py`).  Everything outside the slices raises
+NotImplementedError naming its ROADMAP item.
 """

@@ -1,6 +1,7 @@
-"""Scene configs (twin of ti_raytrace_tpu/examples/scenes.py, the
-100k-triangle benchmark only; the six reference scenes are ROADMAP
-'to port' items)."""
+"""Scene configs (twin of ti_raytrace_tpu/examples/scenes.py): the
+100k-triangle benchmark and the Veach MIS scene; the other reference
+scenes are ROADMAP 'to port' items.  Each function returns (SceneData on
+`device`, ExampleConfig)."""
 
 import os
 from dataclasses import dataclass
@@ -21,11 +22,13 @@ _CACHE_DIR = os.path.join(
 @dataclass
 class ExampleConfig:
     name: str
+    integrator: str = "pt_rgb"  # the scene's own integrator (CLI --integrator overrides)
     scale_mult: float = 0.8     # camera distance = diag * scale_mult
     exposure: float = 0.5
     compaction: tuple | None = None  # wavefront compaction schedule
     group: int | None = None    # merged-group size of the production path
     pay_divisors: tuple | None = None  # fused flush+compact tail capacities
+    batch: int | None = None    # frames per CLI dispatch of the plain path (None: 8)
 
 
 BENCH_SCHEDULE_MERGED = ((1, 5), (3, 24), (8, 128))
@@ -70,7 +73,7 @@ def benchmark_100k(device="cpu", n_target: int = 100_000):
     from ti_raytrace_tpu_torch.scene.build import BUILD_FORMAT_VERSION
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
-    cfg = ExampleConfig("benchmark_100k", scale_mult=0.8,
+    cfg = ExampleConfig("benchmark_100k", "pt_rgb", scale_mult=0.8,
                         compaction=BENCH_SCHEDULE_MERGED, group=BENCH_GROUP,
                         pay_divisors=BENCH_PAY_DIVISORS)
     path = os.path.join(_CACHE_DIR,
@@ -87,7 +90,26 @@ def benchmark_100k(device="cpu", n_target: int = 100_000):
     return device_scene(host, device), cfg
 
 
-EXAMPLES = {"benchmark_100k": benchmark_100k}
+def veach_host() -> dict:
+    """Host dict of the Veach MIS scene: bdpt.obj (11,544 triangles, four
+    emissive triangles) with smooth normals, no environment."""
+    b = SceneBuilder()
+    b.add_obj(asset_path("model/bdpt.obj"))
+    return b.build_host(smooth_normals=True)
+
+
+def veach_bdpt(device="cpu"):
+    """The Veach MIS scene (the reference's example/veach_bdpt.py).  Its
+    own integrator is BDPT; `--integrator pt_rgb` renders it with the
+    unidirectional tracer and NEE (the reference's veach_pt golden).  No
+    compaction schedule: the exact path."""
+    from ti_raytrace_tpu_torch.scene.data import device_scene
+
+    return device_scene(veach_host(), device), ExampleConfig(
+        "veach_bdpt", "bdpt_rgb", scale_mult=0.5)
+
+
+EXAMPLES = {"benchmark_100k": benchmark_100k, "veach_bdpt": veach_bdpt}
 
 
 def framing_params(scene, cfg: ExampleConfig):

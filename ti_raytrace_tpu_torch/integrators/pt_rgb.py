@@ -1,4 +1,4 @@
-"""Wavefront RGB path tracer, the production `nee=False` path (twin of
+"""Wavefront RGB path tracer with next-event estimation and MIS (twin of
 ti_raytrace_tpu/integrators/pt_rgb.py).
 
 The whole film advances one bounce at a time as a planar wavefront: per
@@ -13,22 +13,31 @@ RNG: film key -> split -> (camera key, path key); bounce b draws
 uniform(fold_in(path key, b), (8, N)) — bit-equal to the reference
 through core/rng, so renders match it lane for lane up to rounding.
 
+Tracer modes per bounce: the camera bounce of a pinhole wavefront is
+coherent as generated (shared origin); bounces of the exact path and
+bounces before the first compaction are coherence-sorted inside the
+tracer (its sorted mode); compacted deep phases presort the carry and
+trace with a per-tile order.  With `nee=True` every Disney hit traces one
+shadow ray toward a sampled emitter point (sorted mode too) and weighs it
+against BSDF sampling with the power heuristic.
+
 Differences from the reference, by design: the carry's pixel ids are an
 int64 tensor (not bitcast into the float carry); `_while_bounces` checks
 for live lanes on the host once per bounce (one device sync per bounce);
-overflow counts stay on the device until the end of a render call.
-Not ported: next-event estimation (`nee=True`, ROADMAP 'to port': NEE
-with scene/sample_planar.py); the exact (uncompacted) mode and a first
-compaction after bounce 1, whose un-presorted bounces need the sorted
-tracer mode (ROADMAP 'to port': the cluster kernel's other modes); the
-reference's measured-loss switches (PRESORT_CARRY, PRESORT_HALF,
-TRACE0_COMPACT, NEE_FROM_EMITTER_PARITY).
+overflow counts stay on the device until the end of a render call; the
+merged prologue stops at max_depth.  The port's renders default to
+nee=False (the benchmark's glass scene needs no NEE); callers choose NEE
+with `has_nee_materials`, as the CLI does.  Not ported: the corrected
+true-pdf mode (ROADMAP 'to port': BDPT RGB) and `calibrate_compaction`
+(ROADMAP 'to port': CLI, goldens and debug); the reference's
+measured-loss switches (PRESORT_CARRY, PRESORT_HALF, TRACE0_COMPACT,
+NEE_FROM_EMITTER_PARITY).
 """
 
 import torch
 
 from ti_raytrace_tpu_torch import film as film_mod
-from ti_raytrace_tpu_torch.accel import needs_presort, trace_shaded
+from ti_raytrace_tpu_torch.accel import needs_presort, trace, trace_shaded
 from ti_raytrace_tpu_torch.bsdf.planar import disney_evaluate_pdf, disney_sample, glass_sample
 from ti_raytrace_tpu_torch.camera import (CameraSpec, morton_pixel_order,
                                           ray_directions_morton)
@@ -36,23 +45,12 @@ from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.ops import planar as pv
 from ti_raytrace_tpu_torch.ops.shading import decode_hit
+from ti_raytrace_tpu_torch.scene.sample_planar import sample_li
 from ti_raytrace_tpu_torch.texture.texture import texture2d_packed
 from ti_raytrace_tpu_torch.utils.colorsp import srgb_to_lrgb
+from ti_raytrace_tpu_torch.utils.sampling import power_heuristic
 
 MAX_DEPTH = 15
-
-_NO_SORT = ("the exact (uncompacted) mode and compaction starting after "
-            "bounce 1 trace un-presorted bounces: the sorted tracer mode is "
-            "outside the ported slice (ROADMAP 'to port': the cluster "
-            "kernel's other modes)")
-
-
-def _check_path(nee: bool, compaction):
-    if nee:
-        raise NotImplementedError("nee=True is outside the ported slice (ROADMAP "
-                                  "'to port': NEE with scene/sample_planar.py)")
-    if not compaction or compaction[0][0] != 1:
-        raise NotImplementedError(_NO_SORT)
 
 
 # ------------------------------------------------------------------ carry
@@ -88,37 +86,43 @@ def _stable_order(key):
 def _sort_carry(scene, carry):
     """Permute the carry into (alive-first, origin morton, direction
     morton) order: one stable sort of the composed 61-bit key."""
-    from ti_raytrace_tpu_torch.ops.cluster_trace import _coherence_key
+    from ti_raytrace_tpu_torch.ops.cluster_trace import coherence_key60
 
-    key_o, key_d = _coherence_key(scene, carry["origin"], carry["direction"])
     dead = (~carry["alive"]).to(torch.int64)
-    return _permute(carry, _stable_order((dead << 60) | (key_o << 30) | key_d))
+    key = coherence_key60(scene, carry["origin"], carry["direction"])
+    return _permute(carry, _stable_order((dead << 60) | key))
 
 
 # ---------------------------------------------------------------- bounce
 
-def _bounce(scene, carry, key, presort: bool = False, shared_origin=None):
+def _bounce(scene, carry, key, nee: bool = False, presort: bool = False,
+            shared_origin=None):
     """One bounce: trace the carry's rays and shade the hits.
     shared_origin: a pinhole camera wavefront in static morton lane order
-    (coherent as it is); presort=True: sort the carry first and trace with
-    a per-tile front-to-back order (the deep bounces)."""
+    (coherent as it is); presort=True: sort the carry first and trace
+    with a per-tile front-to-back order (the compacted deep phases);
+    otherwise the tracer coherence-sorts the rays around the trace (its
+    sorted mode)."""
     if presort:
         carry = _sort_carry(scene, carry)
     o = carry["origin"]
     d = carry["direction"]
     u = rng.uniform(key, (8, o.shape[1]), device=o.device)
-    t, prim, uv_bary, attr = trace_shaded(scene, o, d, shared_origin=shared_origin,
-                                          tile_order=presort)
-    return _shade(scene, carry, u, t, prim, uv_bary, attr)
+    t, prim, uv_bary, attr = trace_shaded(
+        scene, o, d, sort_rays=not presort and shared_origin is None, sort_small=True,
+        shared_origin=shared_origin, tile_order=presort)
+    return _shade(scene, carry, u, t, prim, uv_bary, attr, nee)
 
 
-def _shade(scene, carry, u, t, prim, uv_bary, attr):
-    """The post-trace half of _bounce: emitter hits, glass and Disney
-    sampling, Beer-Lambert roulette and the carry update, from a hit
-    record and per-lane uniforms u (8, N)."""
+def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False):
+    """The post-trace half of _bounce: emitter hits (MIS-weighted under
+    NEE), NEE shadow rays, glass and Disney sampling, Beer-Lambert
+    roulette and the carry update, from a hit record and per-lane
+    uniforms u (8, N): rows 0:3 NEE, 3:6 BSDF, 6 roulette."""
     o = carry["origin"]
     d = carry["direction"]
     alive = carry["alive"]
+    u_nee = u[0:3]
     u_bsdf = u[3:6]
     u_rr = u[6]
 
@@ -137,15 +141,47 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr):
     carry_miss_dir = pv.where(miss, d, carry["miss_dir"])
     carry_miss_w = torch.where(miss[None], throughput, carry["miss_weight"])
 
-    # emitter hit: terminate; without NEE there is no competing light
-    # sampling technique, so the emission counts in full (MIS weight 1)
+    # emitter hit: terminate.  Under NEE the BSDF-sampled hit competes
+    # with light sampling (power heuristic, camera and specular chains
+    # count in full); without NEE the emission counts in full
     is_light = valid & (hit.mat_type == C.MAT_LIGHT)
-    radiance = radiance + torch.where(is_light[None], throughput * hit.mat_color, 0.0)
+    emitted = throughput * hit.mat_color
+    if nee:
+        fcos = torch.abs(pv.dot(d, hit.gnormal))
+        area = hit.area * scene.n_lights
+        light_pdf_hit = (t * t) / torch.clamp(area * fcos, min=1e-12)
+        mis_w = torch.where(perfect_spec, 1.0, power_heuristic(brdf_pdf_prev, light_pdf_hit))
+        emitted = mis_w[None] * throughput * hit.mat_color
+    radiance = radiance + torch.where(is_light[None], emitted, 0.0)
 
     is_glass = valid & (hit.mat_type == C.MAT_GLASS)
     g_dir, g_forb = glass_sample(u_bsdf[0], d, hit.normal, hit.mat_p0)
 
     is_disney = valid & (hit.mat_type != C.MAT_GLASS) & (hit.mat_type != C.MAT_LIGHT)
+    if nee:
+        ls = sample_li(scene, hit.pos, u_nee)
+        ndl_surf = pv.dot(fnormal, ls["direction"])
+        ndl_light = pv.dot(ls["normal"], ls["direction"])
+        nee_geo_ok = is_disney & (ndl_surf < 0.0) & (ndl_light > 0.0)
+        # the shadow ray starts just off the sampled emitter point and
+        # must hit this lane's own prim first (the reference's unbiased
+        # default; its on-emitter variant is a measured-loss switch).
+        # Lanes without a Disney hit are parked far outside the scene:
+        # their tiles fail every cluster slab test
+        sh_o = pv.where(is_disney, pv.offset_ray(ls["pos"], ls["normal"]),
+                        torch.full_like(ls["pos"], 1e9))
+        _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
+        unoccluded = sh_prim == prim
+        nee_brdf, nee_pdf = disney_evaluate_pdf(fnormal, -d, -ls["direction"],
+                                                hit.mat_p0, hit.mat_p1)
+        light_pdf = (ls["dist"] * ls["dist"] * ls["choice_pdf"]
+                     / torch.clamp(ndl_light, min=1e-12))
+        nee_ok = nee_geo_ok & unoccluded & (nee_pdf > 0.0)
+        nee_w = (power_heuristic(light_pdf, nee_pdf) / torch.clamp(light_pdf, min=1e-4)
+                 * nee_brdf * torch.abs(ndl_surf))
+        radiance = radiance + torch.where(
+            nee_ok[None], nee_w[None] * ls["emission"] * throughput * reflect_color, 0.0)
+
     d_dir = disney_sample(u_bsdf, d, fnormal, hit.mat_p0, hit.mat_p1)
     d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1)
     d_brdf = d_brdf * torch.abs(pv.dot(hit.normal, d_dir))
@@ -296,12 +332,21 @@ def has_nee_materials(scene) -> bool:
     return bool(((mt != C.MAT_GLASS) & (mt != C.MAT_LIGHT)).any())
 
 
-def _while_bounces(scene, carry, key, depth0: int, b1: int, presort: bool = False):
+def calibrate_compaction(*args, **kwargs):
+    """Not ported: the probe-frame derivation of a compaction schedule
+    (every ported scene ships a measured schedule or none)."""
+    raise NotImplementedError(
+        "calibrate_compaction is outside the ported slice (ROADMAP 'to "
+        "port': CLI, goldens and debug for the PT scenes)")
+
+
+def _while_bounces(scene, carry, key, depth0: int, b1: int, nee: bool = False,
+                   presort: bool = False):
     """Bounces [depth0, b1), stopping early once no lane is alive (one
     host check per bounce)."""
     depth = depth0
     while depth < b1 and bool(carry["alive"].any()):
-        carry = _bounce(scene, carry, rng.fold_in(key, depth), presort=presort)
+        carry = _bounce(scene, carry, rng.fold_in(key, depth), nee, presort=presort)
         depth += 1
     return carry
 
@@ -309,35 +354,57 @@ def _while_bounces(scene, carry, key, depth0: int, b1: int, presort: bool = Fals
 # ---------------------------------------------------------------- renders
 
 def trace_paths(scene, o, d, key, max_depth: int = MAX_DEPTH, compaction=None,
-                nee: bool = False, return_overflow: bool = False, camera_origin=None):
-    """Path-trace a pinhole camera wavefront in static morton lane order:
-    (3, N) rays from camera_origin -> (3, N) radiance (and the overflow
-    kill count, a device scalar, with return_overflow).
+                nee: bool = False, return_overflow: bool = False,
+                corrected: bool = False, camera_origin=None):
+    """Path-trace a wavefront: (3, N) rays -> (3, N) radiance (and the
+    overflow kill count, a device scalar, with return_overflow).
 
-    compaction: ((start_bounce, shrink_divisor), ...) starting at bounce 1
-    — after start_bounce bounces the wavefront shrinks to N/divisor
-    lanes; deep phases presort the carry."""
-    _check_path(nee, compaction)
-    if camera_origin is None:
-        raise NotImplementedError(_NO_SORT)
+    camera_origin: the wavefront is a pinhole camera's in static morton
+    lane order; bounce 0 then traces with that shared origin, unsorted.
+    compaction: ((start_bounce, shrink_divisor), ...) — after start_bounce
+    bounces the wavefront shrinks to N/divisor lanes and the deep phases
+    presort the carry; None (or empty) is the exact path: every bounce at
+    full width, traced in the sorted mode, one env fold at the end."""
+    if corrected:
+        raise NotImplementedError(
+            "corrected=True (the true-pdf estimator) is outside the ported "
+            "slice (ROADMAP 'to port': BDPT RGB, whose corrected estimator "
+            "it serves)")
     dev = o.device
     N = o.shape[1]
+
+    def start(carry):
+        if camera_origin is None:
+            return 0, carry
+        return 1, _bounce(scene, carry, rng.fold_in(key, 0), nee,
+                          shared_origin=camera_origin)
+
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if not compaction:
+        depth0, carry = start(_new_carry(o, d))
+        carry = _while_bounces(scene, carry, key, depth0, max_depth, nee)
+        missed = (carry["miss_weight"] != 0.0).any(dim=0)
+        env = _env_radiance(scene, carry["miss_dir"])
+        radiance = carry["radiance"] + torch.where(missed[None], env * carry["miss_weight"], 0.0)
+        return (radiance, overflow) if return_overflow else radiance
+
     starts = [0] + [s for s, _ in compaction]
     ends = [s for s, _ in compaction] + [max_depth]
     widths = [N] + [_phase_width(N, dv) for _, dv in compaction]
-
-    carry = _bounce(scene, _new_carry(o, d), rng.fold_in(key, 0),
-                    shared_origin=camera_origin)
+    carry = _new_carry(o, d)
     accum_full = _new_accum(N, dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for phase, (b0, b1, width) in enumerate(zip(starts, ends, widths)):
-        if phase == 0 or b0 >= max_depth:
-            continue  # phase 0 is bounce 0, traced above
-        carry, accum_full = _flush(carry, accum_full, identity=(phase == 1), scene=scene)
-        carry, ov = _compact(carry, width)
-        overflow = overflow + ov
-        carry = _while_bounces(scene, carry, key, b0, min(b1, max_depth),
-                               presort=needs_presort(scene))
+        if b0 >= max_depth:
+            break
+        if phase == 0:
+            depth0, carry = start(carry)
+        else:
+            carry, accum_full = _flush(carry, accum_full, identity=(phase == 1), scene=scene)
+            carry, ov = _compact(carry, width)
+            overflow = overflow + ov
+            depth0 = b0
+        carry = _while_bounces(scene, carry, key, depth0, min(b1, max_depth), nee,
+                               presort=phase > 0 and needs_presort(scene))
 
     carry, (radiance_full, acc_miss) = _flush(carry, accum_full, scene=scene)
     missed = (acc_miss[3:6] != 0.0).any(dim=0)
@@ -354,12 +421,14 @@ def _image(spec, radiance, inv):
 
 
 def render_frame(scene, spec: CameraSpec, cam, frame: int, key, compaction=None,
-                 nee: bool = False, max_depth: int = MAX_DEPTH):
+                 nee: bool = False, corrected: bool = False,
+                 max_depth: int = MAX_DEPTH):
     """One progressive frame (1 spp): (W, H, 3) radiance."""
     k_cam, k_path = rng.split(key)
     o, d, inv = _camera_rays(spec, cam, frame, k_cam)
     radiance = trace_paths(scene, o, d, k_path, compaction=compaction, nee=nee,
-                           camera_origin=o[:, 0], max_depth=max_depth)
+                           corrected=corrected, camera_origin=o[:, 0],
+                           max_depth=max_depth)
     return _image(spec, radiance, inv)
 
 
@@ -382,16 +451,18 @@ def render_film_frames(scene, spec: CameraSpec, cam, film, n_frames: int = 4,
 
 
 def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
-                  max_depth: int = MAX_DEPTH, pay_divisors=None):
+                  nee: bool = False, max_depth: int = MAX_DEPTH, pay_divisors=None):
     """`group` progressive frames with their compacted deep phases merged
     into one wavefront.  Returns (summed (W, H, 3) radiance, overflow).
 
-    Camera rays and bounce 0 of frame g stay on the film's per-frame key
-    chain; merged bounces draw from frame 0's path key over the
-    concatenated wavefront (lane g*w1 + i belongs to frame g).  group=1
-    reproduces the sequential loop (render_film_frames) exactly."""
+    Camera rays and the bounces before the first compaction (bounce 0
+    shared-origin, the rest sorted) of frame g stay on the film's
+    per-frame key chain; merged bounces draw from frame 0's path key over
+    the concatenated wavefront (lane g*w1 + i belongs to frame g).
+    group=1 reproduces the sequential loop (render_film_frames) exactly."""
     N = spec.width * spec.height
-    w1 = _phase_width(N, compaction[0][1])
+    b_merge, dv0 = compaction[0]
+    w1 = _phase_width(N, dv0)
     dev = cam.eye.device
 
     carries, accums = [], []
@@ -400,8 +471,10 @@ def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
     for g in range(group):
         k_cam, k_path = rng.split(key_f)
         o, d, inv = _camera_rays(spec, cam, frame0 + g, k_cam)
-        c = _bounce(scene, _new_carry(o, d), rng.fold_in(k_path, 0),
+        c = _bounce(scene, _new_carry(o, d), rng.fold_in(k_path, 0), nee,
                     shared_origin=o[:, 0])
+        for depth in range(1, min(b_merge, max_depth)):
+            c = _bounce(scene, c, rng.fold_in(k_path, depth), nee)
         c, accum = _flush(c, _new_accum(N, dev), identity=True)
         c, ovg = _compact(c, w1)
         c["pixel"] = c["pixel"] + g * N
@@ -432,7 +505,7 @@ def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
                 carry, accum_full = _flush(carry, accum_full, scene=scene)
                 carry, ovg = _compact(carry, w)
             overflow = overflow + ovg
-        carry = _while_bounces(scene, carry, k_merge, b0, b1, presort=presort)
+        carry = _while_bounces(scene, carry, k_merge, b0, b1, nee, presort=presort)
 
     carry, (acc_rad, acc_miss) = _flush(carry, accum_full, scene=scene)
     missed = (acc_miss[3:6] != 0.0).any(dim=0)
@@ -450,13 +523,14 @@ def render_film_frames_merged(scene, spec: CameraSpec, cam, film,
     _render_group): the production path.  Requires a compaction schedule;
     the film ends on the same frame count and key chain as the sequential
     loop.  Returns (film', overflow kills as an int)."""
-    _check_path(nee, compaction)
+    if not compaction:
+        raise ValueError("merged rendering requires a compaction schedule")
     if n_frames % group:
         raise ValueError(f"n_frames {n_frames} is not a multiple of group {group}")
     total = torch.zeros((), dtype=torch.int64, device=film.hdr.device)
     for _ in range(n_frames // group):
         img_sum, ov = _render_group(scene, spec, cam, film.frame, film.key, group,
-                                    tuple(compaction), max_depth=max_depth,
+                                    tuple(compaction), nee, max_depth=max_depth,
                                     pay_divisors=pay_divisors)
         film = film_mod.accumulate_group(film, img_sum, group)
         total = total + ov

@@ -24,11 +24,19 @@ The kernel returns (t, prim, u, v) per lane; the winner's attributes are
 then gathered from prim_attr by prim id (exact, replacing the reference's
 in-kernel one-hot matmul), and the analytic spheres are traced densely.
 
-Not ported (each raises NotImplementedError): the reference's sorted
-(row-record) tracer mode, per-lane `tmax` bounds and `active`/`cap_frac`
-packing — ROADMAP 'to port', the kernel's other modes.  Its tuning flags
-(TSKIP, NSUB, MT_MXU, ATTR_*, DEFER_ATTR, BF16_SLAB, TILE_WIDE*, ...) are
-measured-loss or diagnostic paths of the TPU kernel and stay there.
+Sorted mode (`sort_rays=True`, the un-presorted deep bounces and NEE
+shadow rays): the lanes are stable-sorted by their coherence key
+(`_coherence_order`), gathered into planar sorted order, traced with a
+per-tile order from the sorted tiles' mean origins, and the hit record is
+gathered back through the inverse permutation.  The reference's
+row-record ray layout was a TPU BlockSpec artefact; the kernel takes the
+same planar operands in every mode.
+
+Not ported (each raises NotImplementedError): per-lane `tmax` bounds and
+`active`/`cap_frac` packing, which only BDPT shadow batches use (ROADMAP
+'to port': BDPT RGB).  The reference's tuning flags (TSKIP, NSUB, MT_MXU,
+ATTR_*, DEFER_ATTR, BF16_SLAB, TILE_WIDE*, ...) are measured-loss or
+diagnostic paths of the TPU kernel and stay there.
 """
 
 import ctypes
@@ -42,8 +50,10 @@ GROUP = 32       # clusters per supercluster of the front-to-back order
 CLUSTER_B = 128  # triangles per cluster (accel/clusters.CLUSTER_B)
 SMALL_WAVEFRONT = 32768  # the reference skips its sort below this width
 
-_UNPORTED = ("outside the ported slice (ROADMAP 'to port': the cluster "
-             "kernel's sorted / tmax / active modes)")
+PAD_KEY = 1 << 62  # coherence key of padding lanes: after every 60-bit key
+
+_UNPORTED = ("outside the ported slice (ROADMAP 'to port': BDPT RGB, with "
+             "the cluster kernel's tmax and active modes)")
 
 
 # --------------------------------------------------------------- orders
@@ -59,6 +69,24 @@ def _coherence_key(scene, o, d):
     code_o = morton3d(q[0], q[1], q[2])
     code_d = morton3d(d[0] * 0.5 + 0.5, d[1] * 0.5 + 0.5, d[2] * 0.5 + 0.5)
     return code_o, code_d
+
+
+def coherence_key60(scene, o, d):
+    """The two coherence keys as one int64 (origin morton << 30 |
+    direction morton): ascending order of it is the reference's two-key
+    (origin, direction) lexicographic order."""
+    key_o, key_d = _coherence_key(scene, o, d)
+    return (key_o << 30) | key_d
+
+
+def _coherence_order(scene, o, d, n_pad: int):
+    """Stable lane order (n_pad,) int64 of the wavefront by coherence_key60.
+    Padding lanes take PAD_KEY and sort after every lane; lanes parked at
+    1e9 clamp to the top origin cell, after every live lane inside the
+    scene box."""
+    key = torch.nn.functional.pad(coherence_key60(scene, o, d), (0, n_pad - o.shape[1]),
+                                  value=PAD_KEY)
+    return torch.sort(key, stable=True).indices
 
 
 def _super_boxes(cb, n_clusters):
@@ -306,26 +334,22 @@ def cluster_trace(o, d, n_valid: int, bounds, order, tri, origin_mt: bool):
 
 # ----------------------------------------------------------------- tracer
 
-def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False,
-                    sort_small: bool = False, shared_origin=None,
-                    tile_order: bool = False, tmax=None, active=None, cap_frac=None):
-    """Closest hit via the cluster kernel + dense analytic-sphere tail.
-
-    o, d: planar (3, N).  Returns (t, prim, uv (2, N)) or, with want_attr,
-    (t, prim, uv, attr (PRIM_A, N)); misses have t = INF, prim = -1 and
-    zero attributes.  The wavefront must arrive coherent (sort_rays=False,
-    or narrower than SMALL_WAVEFRONT without sort_small)."""
-    if tmax is not None or active is not None or cap_frac is not None:
-        raise NotImplementedError(f"tmax / active / cap_frac: {_UNPORTED}")
+def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: bool = False):
+    """The kernel's operands for the planar wavefront o, d (3, N):
+    ((o, d, n_valid, bounds, order, tri, origin_mt), perm), padded to whole
+    tiles.  sort_rays: the lanes go in coherence order and perm is that
+    lane order (n_pad,), else None.  The cluster order is the shared
+    origin's, per tile (sorted or tile_order), or the static one."""
     N = o.shape[1]
-    if N <= SMALL_WAVEFRONT and not sort_small:
-        sort_rays = False
-    if sort_rays:
-        raise NotImplementedError(f"the sorted tracer mode: {_UNPORTED}")
-
     n_pad = -(-N // TILE) * TILE
-    o_p = torch.nn.functional.pad(o, (0, n_pad - N)).contiguous()
-    d_p = torch.nn.functional.pad(d, (0, n_pad - N)).contiguous()
+    o_p = torch.nn.functional.pad(o, (0, n_pad - N))
+    d_p = torch.nn.functional.pad(d, (0, n_pad - N))
+    perm = None
+    if sort_rays:
+        perm = _coherence_order(scene, o, d, n_pad)
+        od = torch.cat([o_p, d_p]).index_select(1, perm)
+        o_p, d_p = od[0:3], od[3:6]
+    o_p, d_p = o_p.contiguous(), d_p.contiguous()
     cb = scene.cluster_bounds
     tri = scene.cluster_tri
     nc = cb.shape[1]
@@ -333,15 +357,41 @@ def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False
     if origin_mt:
         order = _point_order(cb, nc, shared_origin)
         tri = _origin_mt_table(tri, shared_origin)
-    elif tile_order:
+    elif sort_rays or tile_order:
         # tile centroids from the padded origin rows (padding zeros only
         # skew the last partial tile's heuristic order; pruning is exact)
         cent = o_p.reshape(3, n_pad // TILE, TILE).mean(dim=2).T
         order = _tile_order_from_cent(cent, cb, nc)
     else:
         order = _static_order(cb, nc)
+    return (o_p, d_p, N, cb, order, tri, origin_mt), perm
 
-    t, prim, u, v, _ = cluster_trace(o_p, d_p, N, cb, order, tri, origin_mt)
+
+def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False,
+                    sort_small: bool = False, shared_origin=None,
+                    tile_order: bool = False, tmax=None, active=None, cap_frac=None):
+    """Closest hit via the cluster kernel + dense analytic-sphere tail.
+
+    o, d: planar (3, N).  Returns (t, prim, uv (2, N)) or, with want_attr,
+    (t, prim, uv, attr (PRIM_A, N)); misses have t = INF, prim = -1 and
+    zero attributes.  sort_rays: coherence-sort the lanes around the
+    trace (skipped below SMALL_WAVEFRONT lanes unless sort_small);
+    otherwise the wavefront must arrive coherent (a static morton camera
+    wavefront with shared_origin, or a presorted carry with tile_order)."""
+    if tmax is not None or active is not None or cap_frac is not None:
+        raise NotImplementedError(f"tmax / active / cap_frac: {_UNPORTED}")
+    N = o.shape[1]
+    if N <= SMALL_WAVEFRONT and not sort_small:
+        sort_rays = False
+    args, perm = kernel_inputs(scene, o, d, sort_rays, shared_origin, tile_order)
+    t, prim, u, v, _ = cluster_trace(*args)
+    if perm is not None:
+        # live lanes sort before padding, so lanes [0, N) hold every hit;
+        # gather them back to caller order through the inverse permutation
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        inv = inv[:N]
+        t, prim, u, v = (x.index_select(0, inv) for x in (t, prim, u, v))
     t, prim = t[:N], prim[:N]
     uv = torch.stack([u[:N], v[:N]])
 

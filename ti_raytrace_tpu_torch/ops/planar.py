@@ -26,6 +26,10 @@ def cross(a, b):
     )
 
 
+def length(a):
+    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
+
+
 def normalize(a, eps=1e-20):
     inv = torch.rsqrt(torch.clamp(dot(a, a), min=eps))
     return a * inv[None]
@@ -52,6 +56,14 @@ def cosine_sample_hemisphere(u1, u2):
     y = r * torch.sin(phi)
     z = torch.sqrt(torch.clamp(1.0 - x * x - y * y, min=0.0))
     return normalize(p3(x, y, z))
+
+
+def uniform_sample_sphere(u1, u2):
+    """Uniform direction on the unit sphere."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, 0.0, 1.0))
+    phi = TWO_PI * u2
+    return p3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
 def onb(n):

@@ -1,6 +1,6 @@
 """Host-side scene assembly: triangle soup + analytic shapes -> host dict
 (numpy; twin of ti_raytrace_tpu/scene/build.py without the BVH and the
-spectral tables).
+spectral tables; smooth normals included).
 
 `SceneBuilder.build_host` returns the same array dict as the reference's,
 byte for byte, minus the keys only the reference reads: the threaded BVH
@@ -108,11 +108,10 @@ class SceneBuilder:
 
     def build_host(self, smooth_normals: bool = False, spectral: bool = False) -> dict:
         """Assemble the host-array dict that device_scene consumes."""
-        if smooth_normals or spectral:
+        if spectral:
             raise NotImplementedError(
-                "smooth normals and spectral packs are outside the ported "
-                "slice (ROADMAP 'to port': the dense tracer + cornell/"
-                "single_model slice, and spectral PT)")
+                "spectral packs are outside the ported slice (ROADMAP "
+                "'to port': spectral PT)")
         pos, nrm, uv, tri_mat = self._concat_tris()
         T = pos.shape[0]
         P = T + len(self._shape_prims)
@@ -126,6 +125,9 @@ class SceneBuilder:
         fn = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
         has_n = np.linalg.norm(nrm[:, 0], axis=-1) > 0.0
         nrm = np.where(has_n[:, None, None], nrm, fn[:, None, :])
+
+        if smooth_normals and T:
+            nrm = _smooth_normals(pos, nrm)
 
         # triangle areas (Heron)
         a = np.linalg.norm(pos[:, 0] - pos[:, 1], axis=-1)
@@ -217,3 +219,53 @@ class SceneBuilder:
         host["light_attr"] = build_light_attr(host)
         host.update(build_clusters(host))
         return host
+
+
+def _smooth_normals(pos, nrm):
+    """Area+angle-weighted normal smoothing across coincident vertices
+    (the reference's process_normal; a positional hash joins the corners).
+
+    pos/nrm: (T,3,3).  A neighbour's normal only contributes when it
+    agrees with the vertex's own (dot > 0.5)."""
+    T = pos.shape[0]
+    flat_pos = pos.reshape(-1, 3)
+    flat_nrm = nrm.reshape(-1, 3)
+    ln = np.linalg.norm(flat_nrm, axis=-1, keepdims=True)
+    unit_n = flat_nrm / np.maximum(ln, 1e-20)
+
+    v0, v1, v2 = pos[:, 0], pos[:, 1], pos[:, 2]
+
+    def corner_angle(a, b, c):
+        e1 = b - a
+        e2 = c - a
+        e1 /= np.maximum(np.linalg.norm(e1, axis=-1, keepdims=True), 1e-20)
+        e2 /= np.maximum(np.linalg.norm(e2, axis=-1, keepdims=True), 1e-20)
+        return np.arccos(np.clip(np.sum(e1 * e2, -1), -1.0, 1.0))
+
+    ang = np.stack(
+        [corner_angle(v0, v1, v2), corner_angle(v1, v0, v2), corner_angle(v2, v0, v1)],
+        axis=1,
+    ).reshape(-1)
+    area = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    w = (ang * np.repeat(area, 3))[:, None] * unit_n  # weighted contribution per corner
+
+    key = np.round(flat_pos / 1e-5).astype(np.int64)
+    _, _, inv = np.unique(key, axis=0, return_index=True, return_inverse=True)
+
+    # per group of coincident corners (a vertex's valence: tiny), sum the
+    # contributions that agree with each member's own normal
+    order = np.argsort(inv, kind="stable")
+    sorted_inv = inv[order]
+    boundaries = np.nonzero(np.diff(sorted_inv))[0] + 1
+    starts = np.concatenate([[0], boundaries])
+    ends = np.concatenate([boundaries, [sorted_inv.shape[0]]])
+
+    out = np.zeros_like(flat_nrm)
+    for s, e in zip(starts, ends):
+        idx = order[s:e]
+        nn = unit_n[idx]
+        agree = nn @ nn.T > 0.5
+        np.fill_diagonal(agree, True)
+        out[idx] = agree.astype(np.float32) @ w[idx]
+    out /= np.maximum(np.linalg.norm(out, axis=-1, keepdims=True), 1e-20)
+    return out.reshape(T, 3, 3)

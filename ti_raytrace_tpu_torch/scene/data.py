@@ -31,6 +31,7 @@ class SceneData:
     env_power: torch.Tensor     # () f32
     # --- packed per-primitive shading table (scene/packs.py)
     prim_attr: torch.Tensor     # (PRIM_A, P) f32
+    light_attr: torch.Tensor    # (LIGHT_A, L) f32 per-light sampling pack
     # --- cluster acceleration (accel/clusters.py)
     cluster_bounds: torch.Tensor  # (8, C) f32
     cluster_tri: torch.Tensor     # (12, C*B) f32
@@ -39,6 +40,7 @@ class SceneData:
     aabb_max: torch.Tensor      # (3,) f32
     # --- host-side static facts
     n_prims: int
+    n_lights: int
     sphere_prims: tuple         # ((prim id, shape index), ...) of sphere shapes
 
     @property
@@ -70,10 +72,12 @@ def device_scene(host: dict, device="cpu") -> SceneData:
         env_blocks=torch.as_tensor(pack_blocks(env)).to(device),
         env_power=arr("env_power"),
         prim_attr=arr("prim_attr"),
+        light_attr=arr("light_attr"),
         cluster_bounds=arr("cluster_bounds"),
         cluster_tri=arr("cluster_tri"),
         aabb_min=arr("aabb_min"),
         aabb_max=arr("aabb_max"),
         n_prims=P,
+        n_lights=int(np.asarray(host["light_prim"]).shape[0]),
         sphere_prims=tuple(spheres),
     )

@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths — the 100k-triangle benchmark scene rendered
-by `integrators.pt_rgb.render_film_frames_merged` at 512x512, and the
-Veach MIS scene rendered by `render_film_frames` with NEE (the
-reference's veach_pt golden path) — and holds the CUDA kernel against
-its plain PyTorch version in every mode the paths use.  Phases, each
-printing its own lines; any failure exits non-zero:
+Drives the port's three paths — the 100k-triangle benchmark scene
+rendered by `integrators.pt_rgb.render_film_frames_merged` at 512x512,
+the Veach MIS scene rendered by `pt_rgb.render_film_frames` with NEE (the
+reference's veach_pt golden path), and the same scene under BDPT
+(`bdpt_rgb.render_frame_sliced` in 2 slices, the veach_bdpt golden path)
+— and holds the CUDA kernel against its plain PyTorch version in every
+mode the paths use.
+Phases, each printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
   2. kernel build: csrc/cluster_trace.cu compiled with nvcc, timed;
@@ -28,12 +30,25 @@ printing its own lines; any failure exits non-zero:
   7. veach_pt: 512^2, max depth 15, NEE, exact path, VEACH_FRAMES frames
      in one render_film_frames call; zero overflow kills, a finite
      non-negative HDR with mean > 0, kernel launches > 0, ms/frame;
-  8. the same 32^2 Veach render on CUDA and on the CPU, as in phase 5.
+  8. the same 32^2 Veach render on CUDA and on the CPU, as in phase 5;
+  9. veach_bdpt: kernel vs plain on two sorted-mode wavefronts of one
+     512^2 slice, recorded at bdpt_rgb's calls of the tracer — the fused
+     depth-1 eye+light walk wavefront (262,144 lanes) and the shadow
+     batch of all 20 strategies (2,621,440 lanes, with per-lane tmax) —
+     with phase 3's bar and equal visited counts; the plain version runs
+     on blocks of PLAIN_TILES tiles to bound its memory;
+ 10. veach_bdpt at 512^2, MAX_DEPTH 5, 2 slices, BDPT_FRAMES frames
+     through render_frame_sliced + film.accumulate: zero walk overflow, a
+     finite non-negative HDR with mean > 0, kernel launches > 0,
+     ms/frame; then one frame rendered twice from one key, bit-equal
+     (the splat is a deterministic scatter-add);
+ 11. the same 32^2 BDPT render on CUDA and on the CPU, as in phase 5.
 
 The next-to-last line is a JSON object describing the kernel (launches
-summed over both paths' counted runs, max_abs_err the worst over every
-compared wavefront); the last line is {"ok": true, "device": {...}}.  Without CUDA, or without the
-package beside it, the script exits non-zero and prints no result.
+summed over the three paths' counted runs, max_abs_err the worst over
+every compared wavefront); the last line is {"ok": true, "device":
+{...}}.  Without CUDA, or without the package beside it, the script
+exits non-zero and prints no result.
 """
 
 import json
@@ -49,6 +64,8 @@ TIMED_DISPATCHES = 2
 DEEP_FRAMES = 2  # frames whose compacted carries form the deep wavefront
 SMALL = 32       # phase 5 and 8 film size
 VEACH_FRAMES = 8
+BDPT_FRAMES = 4
+PLAIN_TILES = 1024  # tiles per block of the plain version in phase 9
 T_RTOL = 1e-5
 PRIM_TIE_FRAC = 1e-3
 
@@ -132,15 +149,42 @@ def _deep_wavefront(scene, spec, cam, key):
     return carry["origin"].contiguous(), carry["direction"].contiguous()
 
 
-def _compare(name, inputs, sync, tag="[3 kernel]"):
+def _plain_blocks(inputs, tiles):
+    """cluster_trace_plain over blocks of `tiles` ray tiles (the order
+    rows of a per-tile order go with their tiles), concatenated: the
+    same result as one call, with bounded temporaries."""
+    import torch
+
+    from ti_raytrace_tpu_torch.ops.cluster_trace import TILE, cluster_trace_plain
+
+    o, d, n_valid, bounds, order, tri, origin_mt, tmax = inputs
+    n_pad = o.shape[1]
+    step = tiles * TILE
+    outs = []
+    for a in range(0, n_pad, step):
+        b = min(n_pad, a + step)
+        rows = order if order.shape[0] == 1 else order[a // TILE:b // TILE]
+        outs.append(cluster_trace_plain(
+            o[:, a:b], d[:, a:b], min(max(n_valid - a, 0), b - a), bounds, rows, tri,
+            origin_mt, None if tmax is None else tmax[a:b]))
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def _compare(name, inputs, sync, tag="[3 kernel]", plain_tiles=None):
     """Kernel vs plain version on one wavefront; returns (max |dt|,
-    kernel ms, plain ms)."""
+    kernel ms, plain ms).  plain_tiles: run the plain version in blocks
+    of that many tiles."""
     import torch
 
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL, cluster_trace_plain
 
+    def plain():
+        if plain_tiles:
+            return _plain_blocks(inputs, plain_tiles)
+        return cluster_trace_plain(*inputs)
+
     ms_k, (t_k, p_k, u_k, v_k, vis_k) = _time_ms(lambda: KERNEL(*inputs), 5, sync)
-    ms_p, (t_p, p_p, u_p, v_p, vis_p) = _time_ms(lambda: cluster_trace_plain(*inputs), 1, sync)
+    ms_p, (t_p, p_p, u_p, v_p, vis_p) = _time_ms(plain, 1, sync)
     n = inputs[2]
     t_k, t_p, p_k, p_p = t_k[:n], t_p[:n], p_k[:n], p_p[:n]
     hit = p_p >= 0
@@ -153,13 +197,14 @@ def _compare(name, inputs, sync, tag="[3 kernel]"):
     ties_ok = bool(((t_k - t_p).abs()[mism] <= 1e-5).all())
     miss_ok = bool((p_k[~hit] == p_p[~hit]).all())
     duv = float(torch.maximum((u_k - u_p)[:n].abs().max(), (v_k - v_p)[:n].abs().max()))
+    vis_ok = bool((vis_k == vis_p).all())
     log(f"{tag} {name}: {n} lanes, {n_hit} hits; max|dt| {max_dt:.3e} "
         f"(rtol {T_RTOL} ok={t_ok}); prim mismatch {frac:.2e} of hits "
         f"(ties ok={ties_ok}); misses equal={miss_ok}; max|duv| {duv:.3e}; "
-        f"visited equal={bool((vis_k == vis_p).all())} "
+        f"visited equal={vis_ok} "
         f"(mean {float(vis_k.float().mean()):.1f} clusters/tile); "
         f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
-    if not (n_hit > 0 and t_ok and frac <= PRIM_TIE_FRAC and ties_ok and miss_ok):
+    if not (n_hit > 0 and t_ok and frac <= PRIM_TIE_FRAC and ties_ok and miss_ok and vis_ok):
         fail(f"kernel disagrees with cluster_trace_plain on the {name} wavefront")
     return max_dt, ms_k, ms_p
 
@@ -362,6 +407,127 @@ def phase_veach_parity(cfg):
     _small_parity("[8 veach parity]", render)
 
 
+def _bdpt_wavefronts(scene, spec, cam):
+    """Two sorted-mode wavefronts of slice 0 of a 512^2 veach_bdpt frame,
+    recorded at bdpt_rgb's calls of the tracer: the fused depth-1 eye +
+    light walk trace and the shadow batch (with its tmax)."""
+    from ti_raytrace_tpu_torch.core import rng
+    from ti_raytrace_tpu_torch.integrators import bdpt_rgb
+
+    walks, shadows = [], []
+    accel_trace, accel_shaded = bdpt_rgb.trace, bdpt_rgb.trace_shaded
+
+    def recording_shaded(scene, o, d, **kw):
+        walks.append((o, d))
+        return accel_shaded(scene, o, d, **kw)
+
+    def recording_trace(scene, o, d, **kw):
+        shadows.append((o, d, kw))
+        return accel_trace(scene, o, d, **kw)
+
+    bdpt_rgb.trace, bdpt_rgb.trace_shaded = recording_trace, recording_shaded
+    try:
+        keys = rng.split(rng.PRNGKey(2), 4)
+        o, d = bdpt_rgb._camera_rays(spec, cam, 1, keys[0])
+        ns = o.shape[1] // 2
+        bdpt_rgb._render_slice(scene, spec, cam, o[:, :ns], d[:, :ns], keys, 0,
+                               bdpt_rgb.MAX_DEPTH, None, None)
+    finally:
+        bdpt_rgb.trace, bdpt_rgb.trace_shaded = accel_trace, accel_shaded
+    if len(walks) != bdpt_rgb.MAX_DEPTH + 1 or len(shadows) != 1:
+        fail(f"one BDPT slice traced {len(walks)} walk and {len(shadows)} shadow "
+             f"wavefronts, not {bdpt_rgb.MAX_DEPTH + 1} and 1")
+    so, sd, kw = shadows[0]
+    if kw.get("tmax") is None or kw.get("active") is not None:
+        fail("the BDPT shadow batch is not a tmax-bounded trace without a cap")
+    return walks[0], (so, sd, kw["tmax"])
+
+
+def phase_bdpt_kernel(scene, spec, cam, sync):
+    import torch
+
+    from ti_raytrace_tpu_torch.ops.cluster_trace import kernel_inputs
+
+    (wo, wd), (so, sd, tmax) = _bdpt_wavefronts(scene, spec, cam)
+    errs, ms = [], []
+    for name, o, d, tm in (("fused depth-1 walk (sorted)", wo, wd, None),
+                           ("shadow batch (sorted, tmax)", so, sd, tmax)):
+        inputs = kernel_inputs(scene, o, d, True, tmax=tm)[0]
+        n_blocks = -(-inputs[0].shape[1] // (PLAIN_TILES * 256))
+        err, ms_k, ms_p = _compare(f"{name}, plain in {n_blocks} block(s)", inputs, sync,
+                                   tag="[9 bdpt kernel]", plain_tiles=PLAIN_TILES)
+        errs.append(err)
+        ms.append((ms_k, ms_p))
+        del inputs
+    torch.cuda.empty_cache()
+    return max(errs), ms
+
+
+def phase_bdpt_path(scene, spec, cam, cfg, sync):
+    import torch
+
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.core import rng
+    from ti_raytrace_tpu_torch.integrators import bdpt_rgb
+    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+
+    def frames(fl, n):
+        return bdpt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=n, n_slices=2,
+                                           walk_compaction=cfg.bdpt_walk_compaction,
+                                           shadow_cap=cfg.bdpt_shadow_cap)
+
+    fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
+    t0 = time.perf_counter()
+    fl, overflow = frames(fl, 1)  # warm-up
+    sync()
+    log(f"[10 bdpt] warm-up frame {time.perf_counter() - t0:.2f} s, overflow {overflow}")
+    KERNEL.launches = 0  # count only the timed run below
+    t0 = time.perf_counter()
+    fl, ov = frames(fl, BDPT_FRAMES)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = KERNEL.launches
+    overflow += ov
+    hdr = fl.hdr
+    ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
+              and bool((hdr >= 0).all()) and float(hdr.mean()) > 0.0)
+    log(f"[10 bdpt] veach_bdpt {SIZE}^2, MAX_DEPTH {bdpt_rgb.MAX_DEPTH}, 2 slices: "
+        f"{BDPT_FRAMES} frames in {seconds:.2f} s = {seconds / BDPT_FRAMES * 1e3:.3f} "
+        f"ms/frame; walk overflow {overflow}; kernel launches {launches}; "
+        f"hdr mean {float(hdr.mean()):.5f}")
+    key = rng.PRNGKey(7)
+    a = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
+    b = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
+    same = bool(torch.equal(a, b))
+    log(f"[10 bdpt] one frame rendered twice from one key: bit-equal={same} "
+        f"(mean {float(a.mean()):.5f})")
+    if overflow != 0:
+        fail(f"{overflow} walk overflow on the veach_bdpt path")
+    if not ok_img:
+        fail("the veach_bdpt HDR is not a finite, non-negative (W, H, 3) image")
+    if launches == 0:
+        fail("the veach_bdpt path never launched the cluster_trace kernel")
+    if not same:
+        fail("two renders of one BDPT frame from one key differ")
+    return launches
+
+
+def phase_bdpt_parity(cfg):
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.scenes import make_camera, veach_bdpt
+    from ti_raytrace_tpu_torch.integrators import bdpt_rgb
+
+    def render(dev):
+        scene, _ = veach_bdpt(dev)
+        spec, cam = make_camera(scene, cfg, SMALL, SMALL)
+        fl, overflow = bdpt_rgb.render_film_frames(
+            scene, spec, cam, film_mod.new_film(SMALL, SMALL, seed=3, device=dev),
+            n_frames=2, n_slices=2)
+        return fl.hdr, overflow
+
+    _small_parity("[11 bdpt parity]", render)
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -403,6 +569,13 @@ def main():
     phase_veach_parity(vcfg)
     log("[6 veach kernel] kernel vs plain ms: " + "; ".join(
         f"{k:.3f} vs {p:.3f}" for k, p in veach_ms))
+
+    err_b, bdpt_ms = phase_bdpt_kernel(vscene, vspec, vcam, sync)
+    max_err = max(max_err, err_b)
+    launches += phase_bdpt_path(vscene, vspec, vcam, vcfg, sync)
+    phase_bdpt_parity(vcfg)
+    log("[9 bdpt kernel] kernel vs plain ms: " + "; ".join(
+        f"{k:.3f} vs {p:.3f}" for k, p in bdpt_ms))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -5,7 +5,9 @@ kernel in interpret mode, in the modes of the render path:
   * camera bounce: one shared origin, _point_order, origin-MT table;
   * merged deep bounces: presorted rays, per-tile order, generic MT;
   * the sorted mode: coherence-sorted rays, per-tile order, unsorted
-    results (un-presorted deep bounces, NEE shadow rays).
+    results (un-presorted deep bounces, NEE shadow rays);
+  * per-lane tmax, active masks and cap_frac (BDPT's shadow batch), on
+    the Teapot and on the Veach scene (test_torch_nee.py's fixture).
 
 Tolerances: t within rtol = atol = 1e-5 on hit lanes; prim ids equal
 except on t-ties (at most 2% of hits, the tied t within 1e-5, as in
@@ -27,6 +29,7 @@ import torch
 from ti_raytrace_tpu.ops import cluster_trace as jct
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.ops import cluster_trace as tct
+from test_torch_nee import scenes as veach_scenes  # noqa: F401  (fixture)
 
 torch.set_num_threads(2)
 
@@ -200,7 +203,80 @@ def test_trace_sorted_mode_matches_reference(scenes, seed):
     dict(sort_rays=False, active=torch.ones(40, dtype=torch.bool), cap_frac=0.5),
 ])
 def test_unported_modes_raise(scenes, kwargs):
+    """The BDPT modes run on the cluster tracer (the tests below and
+    test_torch_bdpt.py); a scene of at most DENSE_MAX_PRIMS prims still
+    raises in every mode, naming the dense tracer's ROADMAP item."""
+    from types import SimpleNamespace
+
+    from ti_raytrace_tpu_torch.accel import trace
+
     _, ts, host = scenes
     o, d = _incoherent_rays(host, 40, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': BDPT RGB"):
-        tct.trace_clustered(ts, torch.from_numpy(o), torch.from_numpy(d), **kwargs)
+    t, prim = trace(ts, torch.from_numpy(o), torch.from_numpy(d), **kwargs)
+    assert t.shape == prim.shape == (40,)
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': the dense tracer"):
+        trace(SimpleNamespace(n_prims=36), torch.from_numpy(o), torch.from_numpy(d), **kwargs)
+
+
+def _bounded_rays(scene, host, ts, n, seed):
+    """Rays with per-lane bounds as BDPT's shadow batch gives them: a third
+    short of their closest hit (from the port's own unbounded trace), a
+    tenth parked at 1e-3, the rest past it but below INF (a bound at or
+    above INF makes the reference report t == INF with an arbitrary prim;
+    shadow rays never carry one).  The Teapot's mix aims a quarter of its
+    rays at the light sphere, so the analytic tail runs."""
+    if scene == "teapot":
+        o, d = _incoherent_rays(host, n, seed)
+    else:
+        from test_torch_nee import _box_rays
+
+        o, d = _box_rays(host, n, seed)
+        o[:, ::10] = 1e9
+    t_free = tct.trace_clustered(ts, torch.from_numpy(o), torch.from_numpy(d),
+                                 sort_rays=False)[0].numpy()
+    rng = np.random.default_rng(seed + 4)
+    tmax = np.where(rng.random(n) < 0.33, t_free * 0.5,
+                    np.minimum(t_free * 2.0 + 1.0, 1e5)).astype(np.float32)
+    tmax[::10] = 1e-3
+    return o, d, tmax, t_free
+
+
+@pytest.mark.parametrize("scene", ["teapot", "veach"])
+@pytest.mark.parametrize("mode", ["unsorted", "sorted", "capped"])
+def test_trace_tmax_active_matches_reference(request, scene, mode):
+    """Per-lane tmax + an active mask (70%), unsorted, sorted with a cap of
+    512 lanes that cuts no active lane, and sorted with a cap of 256 that
+    cuts some: active lanes compare at the parity bar; lanes cut by their
+    bound or by the cap are misses on both sides (the sort orders are
+    equal).  The analytic tail sees the bound (a sphere before it hits,
+    one beyond it does not) and masks inactive lanes."""
+    js, ts, host = request.getfixturevalue("scenes" if scene == "teapot"
+                                           else "veach_scenes")[:3]
+    o, d, tmax, t_free = _bounded_rays(scene, host, ts, 600, 4)
+    active = np.random.default_rng(9).random(600) < 0.7
+    cap = {"unsorted": None, "sorted": 0.75, "capped": 0.4}[mode]
+    sort_rays = mode != "unsorted"
+    ref = jct.trace_clustered(js, jnp.asarray(o), jnp.asarray(d), interpret=True,
+                              want_attr=True, sort_rays=sort_rays, sort_small=True,
+                              tmax=jnp.asarray(tmax), active=jnp.asarray(active), cap_frac=cap)
+    port = tct.trace_clustered(ts, torch.from_numpy(o), torch.from_numpy(d), want_attr=True,
+                               sort_rays=sort_rays, sort_small=True,
+                               tmax=torch.from_numpy(tmax), active=torch.from_numpy(active),
+                               cap_frac=cap)
+    a = active
+    hit = _assert_trace_parity([np.asarray(x)[..., a] for x in ref],
+                               [x[..., torch.from_numpy(a)] for x in port])
+    cut = tmax[a] <= t_free[a]
+    assert cut.sum() > 100 and not hit[cut].any()  # cut by the bound on both sides
+    assert (port[1].numpy()[a][cut] == -1).all()
+    if cap is not None:
+        lanes = {0.75: 512, 0.4: 256}[cap]
+        assert tct.capacity_lanes(600, cap) == jct.capacity_lanes(600, cap) == lanes
+    free_hit = (t_free[a] < C.INF) & ~cut
+    if mode == "capped":
+        assert (free_hit & ~hit).sum() > 20  # the cap cut some active lanes
+    else:
+        assert hit[free_hit].all()
+    if scene == "teapot" and mode != "capped":
+        sphere = np.asarray(ref[1])[a] == ts.n_prims - 1
+        assert sphere.sum() > 5 and hit[sphere].all()

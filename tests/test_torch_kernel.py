@@ -100,10 +100,77 @@ def test_kernel_matches_plain_on_sorted_veach_wavefront():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "order", "device"])
+def _veach_shadow_wavefront(scene, host, n, seed):
+    """BDPT-like shadow rays on the Veach scene: incoherent rays from
+    inside the box, every 7th parked at 1e9 with the 1e-3 bound, a third
+    bounded short of their closest hit, the rest just past it (on the
+    scene's device); returns (o, d, tmax)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = host["aabb_min"], host["aabb_max"]
+    o = lo + rng.random((n, 3)) * (hi - lo)
+    d = lo + rng.random((n, 3)) * (hi - lo) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o[::7] = 1e9
+    o, d = (torch.from_numpy(x.T.astype(np.float32)).to(scene.device) for x in (o, d))
+    t, _, _ = ct.trace_clustered(scene, o, d, sort_rays=True, sort_small=True)
+    short = torch.from_numpy(rng.random(n) < 0.33).to(scene.device)
+    tmax = torch.where(short, t * 0.5, torch.clamp(t, max=100.0) * 1.001 + 1e-3)
+    tmax[::7] = 1e-3
+    return o, d, tmax
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_with_tmax_on_sorted_veach_wavefront():
+    """The sorted mode's operands with a per-lane tmax (BDPT's shadow
+    batch): bit-equal to the plain version, and lanes bounded short of
+    their hit come back as t == tmax, prim == -1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
+    from ti_raytrace_tpu_torch.examples.scenes import veach_host
+
+    host = veach_host()
+    scene = device_scene(host, "cuda")
+    o, d, tmax = _veach_shadow_wavefront(scene, host, 6000, 6)
+    args, perm = ct.kernel_inputs(scene, o, d, sort_rays=True, tmax=tmax)
+    assert args[7] is not None and torch.equal(args[7][:6000], tmax[perm[:6000]])
+    got = ct.KERNEL(*args)
+    torch.cuda.synchronize()
+    want = ct.cluster_trace_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    bounded = (args[7] > 0) & (got[1] < 0)
+    assert int(bounded.sum()) > 1000
+    assert torch.equal(got[0][bounded], args[7][bounded])
+
+
+@pytest.mark.gpu
+def test_capped_trace_matches_cpu():
+    """trace_clustered with tmax + active + cap_frac (sorted, with a cap
+    that cuts active lanes) on CUDA equals the same trace on the CPU
+    (plain version) lane for lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (a CUDA kernel has no CPU mode)")
+    from ti_raytrace_tpu_torch.examples.scenes import veach_host
+
+    host = veach_host()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = device_scene(host, dev)
+        o, d, tmax = _veach_shadow_wavefront(scene, host, 40000, 8)
+        active = torch.from_numpy(np.random.default_rng(3).random(40000) < 0.6).to(dev)
+        before = ct.KERNEL.launches
+        out[dev] = ct.trace_clustered(scene, o, d, tmax=tmax, active=active, cap_frac=0.5)
+        assert ct.KERNEL.launches == before + (dev == "cuda")
+    assert ct.capacity_lanes(40000, 0.5) == 20224
+    for g, w in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    assert int((out["cpu"][1] >= 0).sum()) > 5000
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "order", "device", "tmax"])
 def test_kernel_wrapper_rejects_bad_inputs(host, bad):
     """The wrapper checks device, dtype, shape and contiguity before any
-    build or launch."""
+    build or launch, the tmax operand's too."""
     scene = device_scene(host, "cpu")
     o, d = _rays(host, 300, 1, False)
     args = list(_kernel_inputs(scene, o, d, False))
@@ -113,6 +180,8 @@ def test_kernel_wrapper_rejects_bad_inputs(host, bad):
         args[1] = args[1][:, :256].contiguous()
     elif bad == "order":
         args[4] = args[4][:1, :64].contiguous()
+    elif bad == "tmax":
+        args[7] = torch.ones(300)
     else:
         args[5] = args[5].to("meta")
     before = ct.KERNEL.launches

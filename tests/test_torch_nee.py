@@ -276,8 +276,9 @@ def test_cli_renders_veach_with_nee(tmp_path, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["nee"] and line["frames"] == 2 and line["overflow_kills"] == 0
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
-    with pytest.raises(NotImplementedError, match="BDPT RGB"):
-        run.main(["veach_bdpt", "--size", "8", "--frames", "1", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="the spectral items"):
+        run.main(["veach_bdpt", "--integrator", "bdpt_spec", "--size", "8", "--frames", "1",
+                  "--device", "cpu"])
 
 
 def test_golden_gate_reads_reference_bounds():
@@ -297,6 +298,6 @@ def test_golden_gate_reads_reference_bounds():
     assert golden.mean_abs_diff(film, ref) == 0.0
     half = film[::2, ::2]  # a 256^2 film: the reference is nearest-resized
     assert golden.mean_abs_diff(half, ref) == jdiff(half, ref) > 0.0
-    for name in ("cornell_box", "veach_bdpt"):
+    for name in ("cornell_box", "prism_rainbow"):
         with pytest.raises(NotImplementedError, match="ROADMAP 'to port'"):
             golden.main(["--scene", name, "--device", "cpu"])

@@ -177,24 +177,31 @@ def test_overflow_kills_are_counted(scenes):
 
 
 def test_unported_paths_raise(scenes):
-    """What is still outside the port raises, naming its ROADMAP item: the
-    tracer's tmax and active/cap_frac modes (BDPT), the corrected
-    estimator, compaction calibration and the dense tracer."""
+    """What is still outside the port raises, naming its ROADMAP item:
+    the dense tracer, compaction calibration, the spectral integrators
+    and the golden targets and CLI scenes of unported slices.  The BDPT
+    tracer modes and the corrected estimator now run."""
     from types import SimpleNamespace
 
     from ti_raytrace_tpu_torch import film as tfilm
     from ti_raytrace_tpu_torch.accel import trace, trace_shaded
+    from ti_raytrace_tpu_torch.examples import run
+    from ti_raytrace_tpu_torch.tools import golden
 
     _, ts, host = scenes
     _, (spec, cam) = _cameras(host, 16)
     fl = tfilm.new_film(16, 16)
     o, d = torch.zeros(3, 40), torch.ones(3, 40)
-    with pytest.raises(NotImplementedError, match="BDPT"):
-        trace(ts, o, d, sort_small=True, tmax=torch.ones(40))
-    with pytest.raises(NotImplementedError, match="BDPT"):
-        trace(ts, o, d, active=torch.ones(40, dtype=torch.bool), cap_frac=0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': BDPT RGB"):
-        tpt.render_frame(ts, spec, cam, 1, fl.key, corrected=True, max_depth=2)
+    t, _ = trace(ts, o, d, sort_small=True, tmax=torch.ones(40))
+    assert t.shape == (40,)
+    t, _ = trace(ts, o, d, active=torch.ones(40, dtype=torch.bool), cap_frac=0.5)
+    assert t.shape == (40,)
+    img = tpt.render_frame(ts, spec, cam, 1, fl.key, corrected=True, max_depth=2)
+    assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': the dense tracer"):
+        run.main(["cornell_box", "--size", "8", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral PT"):
+        golden.main(["--scene", "sky_dome", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpt.calibrate_compaction(ts, spec, cam)
     with pytest.raises(NotImplementedError, match="dense tracer"):

@@ -26,8 +26,13 @@ def trace(scene, origin, direction, sort_rays: bool = True, sort_small: bool = F
     sort_rays=False skips the coherence sort/unsort (the wavefront is
     already coherent); sort_small=True sorts even wavefronts narrower
     than the tracer's SMALL_WAVEFRONT (NEE shadow rays of compacted
-    phases).  tmax / active / cap_frac belong to the BDPT slice and
-    raise."""
+    phases).
+
+    tmax: optional (N,) shadow-ray distance bound: hits at t >= tmax come
+    back as misses (exact for `prim == target` / within-bound
+    predicates).  active + cap_frac: occupancy packing of the sorted
+    mode; inactive lanes' results are undefined, so callers read only the
+    lanes they marked active (trace_clustered has the contract)."""
     _check_cluster_scene(scene)
     from ti_raytrace_tpu_torch.ops.cluster_trace import trace_clustered
 
@@ -38,19 +43,19 @@ def trace(scene, origin, direction, sort_rays: bool = True, sort_small: bool = F
 
 
 def trace_shaded(scene, origin, direction, sort_rays: bool = True, sort_small: bool = False,
-                 shared_origin=None, tile_order: bool = False):
+                 shared_origin=None, tile_order: bool = False, active=None, cap_frac=None):
     """Planar closest hit + shading pack -> (t, prim, uv_bary, attr).
 
     shared_origin: (3,) common ray origin (pinhole camera wavefronts) —
     one shared front-to-back cluster order and the shared-origin narrow
     phase.  tile_order: per-tile front-to-back order for a presorted
-    wavefront (sort_rays=False)."""
+    wavefront (sort_rays=False).  active + cap_frac: as in `trace`."""
     _check_cluster_scene(scene)
     from ti_raytrace_tpu_torch.ops.cluster_trace import trace_clustered
 
     return trace_clustered(scene, origin, direction, sort_rays=sort_rays, want_attr=True,
                            sort_small=sort_small, shared_origin=shared_origin,
-                           tile_order=tile_order)
+                           tile_order=tile_order, active=active, cap_frac=cap_frac)
 
 
 def needs_presort(scene) -> bool:

@@ -26,10 +26,12 @@ def disney_sample(u3, in_dir, n, metallic, roughness):
     return pv.where(u_sel < diffuse_ratio, d_diff, d_spec)
 
 
-def disney_evaluate_pdf(n, v, l, metallic, roughness):
+def disney_evaluate_pdf(n, v, l, metallic, roughness, true_pdf: bool = False):
     """Returns (brdf, pdf); (0, -1) outside the upper hemisphere.  The
     diffuse-branch pdf is the reference's 1/pi (PARITY.md 'Disney diffuse
-    pdf'); the reference's corrected true_pdf mode is not ported."""
+    pdf'), though disney_sample draws that branch cosine-weighted;
+    true_pdf=True returns the sampler's real density cos(theta)/pi (the
+    corrected estimators' mode)."""
     n_dot_l = pv.dot(n, l)
     n_dot_v = pv.dot(n, v)
     valid = (n_dot_l > 0.0) & (n_dot_v > 0.0)
@@ -53,7 +55,8 @@ def disney_evaluate_pdf(n, v, l, metallic, roughness):
 
     diffuse_ratio = 0.5 * (1.0 - metallic)
     pdf_spec = ds * n_dot_h / (4.0 * torch.clamp(torch.abs(l_dot_h), min=1e-8))
-    pdf = diffuse_ratio * (1.0 / PI) + (1.0 - diffuse_ratio) * pdf_spec
+    pdf_diff = n_dot_l / PI if true_pdf else 1.0 / PI
+    pdf = diffuse_ratio * pdf_diff + (1.0 - diffuse_ratio) * pdf_spec
     return torch.where(valid, brdf, 0.0), torch.where(valid, pdf, -1.0)
 
 

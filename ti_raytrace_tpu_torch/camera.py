@@ -81,6 +81,48 @@ def ray_origins(spec: CameraSpec, cam: CameraState) -> torch.Tensor:
     return cam.eye.expand(spec.width * spec.height, 3)
 
 
+def ray_directions(spec: CameraSpec, cam: CameraState, frame: int, key) -> torch.Tensor:
+    """(W*H, 3) unit primary directions in raster lane order (lane n is
+    pixel x = n // H, y = n % H), with the +-0.5 px jitter (off on frame
+    0).  The uniforms are the reference's (2, W, H) draw, row-major; the
+    length is divided out as the reference's norm does."""
+    W, H = spec.width, spec.height
+    dev = cam.eye.device
+    px = torch.arange(W, dtype=torch.float32, device=dev).repeat_interleave(H)
+    py = torch.arange(H, dtype=torch.float32, device=dev).repeat(W)
+    dw = _camera_dirs(spec, cam, frame, key, px, py)
+    norm = torch.sqrt(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2])
+    return (dw / norm[None, :]).T
+
+
+def project(spec: CameraSpec, cam: CameraState, p):
+    """World points (..., 3) -> (pixel_x, pixel_y, wi, valid): the
+    light-tracing splat projection.  The view transform is written as
+    multiply-adds in the reference's product order (no matmul: one ulp
+    moves a splat pixel), and pixels truncate toward zero as the
+    reference's int32 cast does (a float in (-1, 0) lands on pixel 0).
+    Coordinates are clamped to [-2, size + 1] and NaN mapped to 0 before
+    the cast, which then agrees on every device (an out-of-range cast is
+    undefined on the CPU)."""
+    V = cam.view
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
+    vx = px * V[0, 0] + py * V[0, 1] + pz * V[0, 2] + V[0, 3]
+    vy = px * V[1, 0] + py * V[1, 1] + pz * V[1, 2] + V[1, 3]
+    z = px * V[2, 0] + py * V[2, 1] + pz * V[2, 2] + V[2, 3]
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, -1e-12)
+
+    def pixel(f, size):
+        f = torch.nan_to_num(f, nan=0.0).clamp(-2.0, size + 1.0)
+        return f.to(torch.int32)
+
+    u = pixel(-vx / safe_z * spec.fx + spec.cx, spec.width)
+    v = pixel(-vy / safe_z * spec.fy + spec.cy, spec.height)
+    valid = (u >= 0) & (u < spec.width) & (v >= 0) & (v < spec.height) & (z <= 0.0)
+    wi = p - cam.eye
+    wi = wi / torch.clamp(torch.linalg.vector_norm(wi, dim=-1, keepdim=True), min=1e-20)
+    return u, v, wi, valid
+
+
 @lru_cache(maxsize=None)
 def morton_pixel_order(width: int, height: int):
     """Static Z-order pixel permutation for a (width, height) film: host
@@ -119,14 +161,21 @@ def ray_directions_morton(spec: CameraSpec, cam: CameraState, frame: int,
 
 def ray_directions_from_pixels(spec: CameraSpec, cam: CameraState, frame: int,
                                key, px, py) -> torch.Tensor:
-    """Planar (3, n) primary directions for pixel coordinates (px, py).
-    Jitter is a uniform +-0.5 px box, off on frame 0."""
+    """Planar (3, n) primary directions for pixel coordinates (px, py)."""
+    dw = _camera_dirs(spec, cam, frame, key, px, py)
+    inv_len = torch.rsqrt(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2])
+    return dw * inv_len[None, :]
+
+
+def _camera_dirs(spec: CameraSpec, cam: CameraState, frame: int, key, px, py):
+    """Planar (3, n) unnormalised world directions through pixels (px, py):
+    a uniform +-0.5 px jitter box (off on frame 0), then the camera
+    rotation as explicit multiply-adds (no matmul that TF32 could reach
+    on the card)."""
     n = px.shape[0]
     jit = rng.uniform(key, (2, n), device=px.device) - 0.5
     on = 1.0 if int(frame) != 0 else 0.0
     x = (px + jit[0] * on - spec.cx) / spec.fx
     y = (py + jit[1] * on - spec.cy) / spec.fy
     r3 = cam.view_inv[:3, :3]
-    dw = r3[:, 0:1] * x[None, :] + r3[:, 1:2] * y[None, :] - r3[:, 2:3]
-    inv_len = torch.rsqrt(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2])
-    return dw * inv_len[None, :]
+    return r3[:, 0:1] * x[None, :] + r3[:, 1:2] * y[None, :] - r3[:, 2:3]

@@ -8,6 +8,7 @@ import numpy as np
 PI = float(np.pi)
 TWO_PI = float(2.0 * np.pi)
 INF = 1.0e6  # rays miss at t >= INF
+EPS = 1e-5
 
 # --- material type codes -------------------------------------------------
 MAT_DISNEY = 0

@@ -29,6 +29,11 @@
 // Layout (all f32 planar, row-major):
 //   o, d        (3, n_pad) ray origins / directions, n_pad = tiles * 256;
 //               lanes >= n_valid are padding and never candidates
+//   tmax        (n_pad) per-lane distance bound, or NULL: best_t starts at
+//               the bound where it is > 0 (INF otherwise), so every cluster
+//               and triangle beyond it is pruned, and a lane whose closest
+//               hit lies at or beyond it leaves with t == tmax, prim == -1
+//               (the reference's ray column 6)
 //   bounds      (8, C): rows 0:3 box min, 3:6 box max, 6 validity (> 0)
 //   order       (1, C) shared or (n_tiles, C) per-tile int32 sweep order
 //   tri         (12, C * 128), one of two forms:
@@ -55,7 +60,7 @@ __device__ __forceinline__ float sign_of(float x) {
 
 __global__ void __launch_bounds__(TILE)
 cluster_trace_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                     int n_pad, int n_valid,
+                     const float* __restrict__ tmax, int n_pad, int n_valid,
                      const float* __restrict__ bounds, int n_clusters,
                      const int* __restrict__ order, int order_per_tile,
                      const float* __restrict__ tri, int origin_mt,
@@ -75,7 +80,8 @@ cluster_trace_kernel(const float* __restrict__ o, const float* __restrict__ d,
     const int rows = origin_mt ? 11 : 10;
     const int* ord = order + (order_per_tile ? (size_t)tile * n_clusters : 0);
 
-    float best_t = INF_T, best_u = 0.0f, best_v = 0.0f;
+    const float bound = tmax ? tmax[lane] : 0.0f;
+    float best_t = bound > 0.0f ? bound : INF_T, best_u = 0.0f, best_v = 0.0f;
     int best_p = -1;
     int visited = 0;
 
@@ -172,15 +178,16 @@ cluster_trace_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
 extern "C" {
 
-// Launch on `stream` (a cudaStream_t) with n_pad / 256 > 0 blocks;
-// returns cudaGetLastError() as int.
-int cluster_trace_launch(const float* o, const float* d, int n_pad, int n_valid,
+// Launch on `stream` (a cudaStream_t) with n_pad / 256 > 0 blocks; tmax
+// may be NULL (every lane unbounded).  Returns cudaGetLastError() as int.
+int cluster_trace_launch(const float* o, const float* d, const float* tmax,
+                         int n_pad, int n_valid,
                          const float* bounds, int n_clusters, const int* order,
                          int order_per_tile, const float* tri, int origin_mt,
                          float* t_out, int* prim_out, float* u_out, float* v_out,
                          int* visited_out, void* stream) {
     cluster_trace_kernel<<<n_pad / TILE, TILE, 0, (cudaStream_t)stream>>>(
-        o, d, n_pad, n_valid, bounds, n_clusters, order, order_per_tile, tri,
+        o, d, tmax, n_pad, n_valid, bounds, n_clusters, order, order_per_tile, tri,
         origin_mt, t_out, prim_out, u_out, v_out, visited_out);
     return (int)cudaGetLastError();
 }

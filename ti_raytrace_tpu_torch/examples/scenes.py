@@ -28,7 +28,11 @@ class ExampleConfig:
     compaction: tuple | None = None  # wavefront compaction schedule
     group: int | None = None    # merged-group size of the production path
     pay_divisors: tuple | None = None  # fused flush+compact tail capacities
-    batch: int | None = None    # frames per CLI dispatch of the plain path (None: 8)
+    batch: int | None = None    # frames per CLI dispatch (None: 8 for PT, 4 for BDPT)
+    # BDPT walk compaction (eye schedule, light schedule) and shadow-batch
+    # cap, the bdpt_rgb render contract (None: exact)
+    bdpt_walk_compaction: tuple | None = None
+    bdpt_shadow_cap: float | None = None
 
 
 BENCH_SCHEDULE_MERGED = ((1, 5), (3, 24), (8, 128))
@@ -100,9 +104,10 @@ def veach_host() -> dict:
 
 def veach_bdpt(device="cpu"):
     """The Veach MIS scene (the reference's example/veach_bdpt.py).  Its
-    own integrator is BDPT; `--integrator pt_rgb` renders it with the
-    unidirectional tracer and NEE (the reference's veach_pt golden).  No
-    compaction schedule: the exact path."""
+    own integrator is BDPT (`bdpt_rgb`, no walk compaction, no shadow
+    cap: the exact estimator); `--integrator pt_rgb` renders it with the
+    unidirectional tracer and NEE (the reference's veach_pt golden), on
+    the exact path."""
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
     return device_scene(veach_host(), device), ExampleConfig(

@@ -27,11 +27,12 @@ for live lanes on the host once per bounce (one device sync per bounce);
 overflow counts stay on the device until the end of a render call; the
 merged prologue stops at max_depth.  The port's renders default to
 nee=False (the benchmark's glass scene needs no NEE); callers choose NEE
-with `has_nee_materials`, as the CLI does.  Not ported: the corrected
-true-pdf mode (ROADMAP 'to port': BDPT RGB) and `calibrate_compaction`
-(ROADMAP 'to port': CLI, goldens and debug); the reference's
-measured-loss switches (PRESORT_CARRY, PRESORT_HALF, TRACE0_COMPACT,
-NEE_FROM_EMITTER_PARITY).
+with `has_nee_materials`, as the CLI does.  `corrected=True` (on
+`trace_paths` and `render_frame`) divides BSDF-sampled bounces by the
+sampler's true density, the ground truth of the corrected BDPT.  Not
+ported: `calibrate_compaction` (ROADMAP 'to port': CLI, goldens and
+debug); the reference's measured-loss switches (PRESORT_CARRY,
+PRESORT_HALF, TRACE0_COMPACT, NEE_FROM_EMITTER_PARITY).
 """
 
 import torch
@@ -96,7 +97,7 @@ def _sort_carry(scene, carry):
 # ---------------------------------------------------------------- bounce
 
 def _bounce(scene, carry, key, nee: bool = False, presort: bool = False,
-            shared_origin=None):
+            shared_origin=None, corrected: bool = False):
     """One bounce: trace the carry's rays and shade the hits.
     shared_origin: a pinhole camera wavefront in static morton lane order
     (coherent as it is); presort=True: sort the carry first and trace
@@ -111,14 +112,16 @@ def _bounce(scene, carry, key, nee: bool = False, presort: bool = False,
     t, prim, uv_bary, attr = trace_shaded(
         scene, o, d, sort_rays=not presort and shared_origin is None, sort_small=True,
         shared_origin=shared_origin, tile_order=presort)
-    return _shade(scene, carry, u, t, prim, uv_bary, attr, nee)
+    return _shade(scene, carry, u, t, prim, uv_bary, attr, nee, corrected)
 
 
-def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False):
+def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
+           corrected: bool = False):
     """The post-trace half of _bounce: emitter hits (MIS-weighted under
     NEE), NEE shadow rays, glass and Disney sampling, Beer-Lambert
     roulette and the carry update, from a hit record and per-lane
-    uniforms u (8, N): rows 0:3 NEE, 3:6 BSDF, 6 roulette."""
+    uniforms u (8, N): rows 0:3 NEE, 3:6 BSDF, 6 roulette.  corrected:
+    the Disney pdfs are the sampler's true densities."""
     o = carry["origin"]
     d = carry["direction"]
     alive = carry["alive"]
@@ -173,7 +176,7 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False):
         _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
         unoccluded = sh_prim == prim
         nee_brdf, nee_pdf = disney_evaluate_pdf(fnormal, -d, -ls["direction"],
-                                                hit.mat_p0, hit.mat_p1)
+                                                hit.mat_p0, hit.mat_p1, true_pdf=corrected)
         light_pdf = (ls["dist"] * ls["dist"] * ls["choice_pdf"]
                      / torch.clamp(ndl_light, min=1e-12))
         nee_ok = nee_geo_ok & unoccluded & (nee_pdf > 0.0)
@@ -183,7 +186,8 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False):
             nee_ok[None], nee_w[None] * ls["emission"] * throughput * reflect_color, 0.0)
 
     d_dir = disney_sample(u_bsdf, d, fnormal, hit.mat_p0, hit.mat_p1)
-    d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1)
+    d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1,
+                                        true_pdf=corrected)
     d_brdf = d_brdf * torch.abs(pv.dot(hit.normal, d_dir))
 
     next_dir = pv.where(is_glass, g_dir, d_dir)
@@ -341,12 +345,13 @@ def calibrate_compaction(*args, **kwargs):
 
 
 def _while_bounces(scene, carry, key, depth0: int, b1: int, nee: bool = False,
-                   presort: bool = False):
+                   presort: bool = False, corrected: bool = False):
     """Bounces [depth0, b1), stopping early once no lane is alive (one
     host check per bounce)."""
     depth = depth0
     while depth < b1 and bool(carry["alive"].any()):
-        carry = _bounce(scene, carry, rng.fold_in(key, depth), nee, presort=presort)
+        carry = _bounce(scene, carry, rng.fold_in(key, depth), nee, presort=presort,
+                        corrected=corrected)
         depth += 1
     return carry
 
@@ -364,12 +369,9 @@ def trace_paths(scene, o, d, key, max_depth: int = MAX_DEPTH, compaction=None,
     compaction: ((start_bounce, shrink_divisor), ...) — after start_bounce
     bounces the wavefront shrinks to N/divisor lanes and the deep phases
     presort the carry; None (or empty) is the exact path: every bounce at
-    full width, traced in the sorted mode, one env fold at the end."""
-    if corrected:
-        raise NotImplementedError(
-            "corrected=True (the true-pdf estimator) is outside the ported "
-            "slice (ROADMAP 'to port': BDPT RGB, whose corrected estimator "
-            "it serves)")
+    full width, traced in the sorted mode, one env fold at the end.
+    corrected: divide BSDF-sampled bounces by the sampler's true density
+    (the unbiased estimator the corrected BDPT converges to)."""
     dev = o.device
     N = o.shape[1]
 
@@ -377,12 +379,13 @@ def trace_paths(scene, o, d, key, max_depth: int = MAX_DEPTH, compaction=None,
         if camera_origin is None:
             return 0, carry
         return 1, _bounce(scene, carry, rng.fold_in(key, 0), nee,
-                          shared_origin=camera_origin)
+                          shared_origin=camera_origin, corrected=corrected)
 
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     if not compaction:
         depth0, carry = start(_new_carry(o, d))
-        carry = _while_bounces(scene, carry, key, depth0, max_depth, nee)
+        carry = _while_bounces(scene, carry, key, depth0, max_depth, nee,
+                               corrected=corrected)
         missed = (carry["miss_weight"] != 0.0).any(dim=0)
         env = _env_radiance(scene, carry["miss_dir"])
         radiance = carry["radiance"] + torch.where(missed[None], env * carry["miss_weight"], 0.0)
@@ -404,7 +407,8 @@ def trace_paths(scene, o, d, key, max_depth: int = MAX_DEPTH, compaction=None,
             overflow = overflow + ov
             depth0 = b0
         carry = _while_bounces(scene, carry, key, depth0, min(b1, max_depth), nee,
-                               presort=phase > 0 and needs_presort(scene))
+                               presort=phase > 0 and needs_presort(scene),
+                               corrected=corrected)
 
     carry, (radiance_full, acc_miss) = _flush(carry, accum_full, scene=scene)
     missed = (acc_miss[3:6] != 0.0).any(dim=0)

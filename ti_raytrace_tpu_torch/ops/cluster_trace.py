@@ -24,19 +24,23 @@ The kernel returns (t, prim, u, v) per lane; the winner's attributes are
 then gathered from prim_attr by prim id (exact, replacing the reference's
 in-kernel one-hot matmul), and the analytic spheres are traced densely.
 
-Sorted mode (`sort_rays=True`, the un-presorted deep bounces and NEE
-shadow rays): the lanes are stable-sorted by their coherence key
-(`_coherence_order`), gathered into planar sorted order, traced with a
-per-tile order from the sorted tiles' mean origins, and the hit record is
-gathered back through the inverse permutation.  The reference's
-row-record ray layout was a TPU BlockSpec artefact; the kernel takes the
-same planar operands in every mode.
+Sorted mode (`sort_rays=True`, the un-presorted deep bounces, NEE
+shadow rays and BDPT's walk and shadow wavefronts): the lanes are
+stable-sorted by their coherence key (`_coherence_order`), gathered into
+planar sorted order, traced with a per-tile order from the sorted tiles'
+mean origins, and the hit record is gathered back through the inverse
+permutation.  The reference's row-record ray layout was a TPU BlockSpec
+artefact; the kernel takes the same planar operands in every mode.
 
-Not ported (each raises NotImplementedError): per-lane `tmax` bounds and
-`active`/`cap_frac` packing, which only BDPT shadow batches use (ROADMAP
-'to port': BDPT RGB).  The reference's tuning flags (TSKIP, NSUB, MT_MXU,
-ATTR_*, DEFER_ATTR, BF16_SLAB, TILE_WIDE*, ...) are measured-loss or
-diagnostic paths of the TPU kernel and stay there.
+Shadow rays (BDPT) add a per-lane `tmax` bound, which seeds the kernel's
+best hit (hits at or beyond it come back as misses), and `active` +
+`cap_frac` occupancy packing in sorted mode: inactive lanes take the
+padding key, so the kernel runs on the first `capacity_lanes` sorted
+lanes only and the cut tail unsorts as a miss.
+
+The reference's tuning flags (TSKIP, NSUB, MT_MXU, ATTR_*, DEFER_ATTR,
+BF16_SLAB, TILE_WIDE*, ...) are measured-loss or diagnostic paths of the
+TPU kernel and stay there.
 """
 
 import ctypes
@@ -51,9 +55,6 @@ CLUSTER_B = 128  # triangles per cluster (accel/clusters.CLUSTER_B)
 SMALL_WAVEFRONT = 32768  # the reference skips its sort below this width
 
 PAD_KEY = 1 << 62  # coherence key of padding lanes: after every 60-bit key
-
-_UNPORTED = ("outside the ported slice (ROADMAP 'to port': BDPT RGB, with "
-             "the cluster kernel's tmax and active modes)")
 
 
 # --------------------------------------------------------------- orders
@@ -79,13 +80,15 @@ def coherence_key60(scene, o, d):
     return (key_o << 30) | key_d
 
 
-def _coherence_order(scene, o, d, n_pad: int):
+def _coherence_order(scene, o, d, n_pad: int, active=None):
     """Stable lane order (n_pad,) int64 of the wavefront by coherence_key60.
-    Padding lanes take PAD_KEY and sort after every lane; lanes parked at
-    1e9 clamp to the top origin cell, after every live lane inside the
-    scene box."""
-    key = torch.nn.functional.pad(coherence_key60(scene, o, d), (0, n_pad - o.shape[1]),
-                                  value=PAD_KEY)
+    Padding lanes, and lanes outside `active`, take PAD_KEY and sort after
+    every other lane; lanes parked at 1e9 clamp to the top origin cell,
+    after every live lane inside the scene box."""
+    key = coherence_key60(scene, o, d)
+    if active is not None:
+        key = torch.where(active, key, PAD_KEY)
+    key = torch.nn.functional.pad(key, (0, n_pad - o.shape[1]), value=PAD_KEY)
     return torch.sort(key, stable=True).indices
 
 
@@ -164,12 +167,13 @@ def _safe_inv(v):
                              torch.where(v >= 0, 1e-12, -1e-12), v)
 
 
-def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool):
+def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None):
     """The kernel's computation in plain PyTorch, vectorised over
     (tiles, TILE rays, CLUSTER_B triangles) and looped over sweep
     positions k: tile i tests cluster order[i, k].  Same inputs and
-    outputs as the kernel (see csrc/cluster_trace.cu): returns t (n_pad,),
-    prim int32 (n_pad,), u, v (n_pad,) and visited int32 (n_tiles,)."""
+    outputs as the kernel (see csrc/cluster_trace.cu; tmax (n_pad,) or
+    None): returns t (n_pad,), prim int32 (n_pad,), u, v (n_pad,) and
+    visited int32 (n_tiles,)."""
     n_pad = o.shape[1]
     T = n_pad // TILE
     nc = bounds.shape[1]
@@ -186,6 +190,8 @@ def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool)
     blocks = tri.reshape(tri.shape[0], nc, CLUSTER_B)
 
     best_t = torch.full((T, TILE, 1), C.INF, dtype=torch.float32, device=dev)
+    if tmax is not None:
+        best_t = torch.where(lanes(tmax) > 0.0, lanes(tmax), best_t)
     best_p = torch.full((T, TILE, 1), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((T, TILE, 1), dtype=torch.float32, device=dev)
     best_v = torch.zeros((T, TILE, 1), dtype=torch.float32, device=dev)
@@ -270,7 +276,7 @@ class _ClusterTraceKernel:
 
             lib, self.build_info = cuda_build.load("cluster_trace.cu")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.cluster_trace_launch.argtypes = [p, p, i, i, p, i, p, i, p, i,
+            lib.cluster_trace_launch.argtypes = [p, p, p, i, i, p, i, p, i, p, i,
                                                  p, p, p, p, p, p]
             lib.cluster_trace_launch.restype = ctypes.c_int
             lib.cluster_trace_error_string.argtypes = [ctypes.c_int]
@@ -278,25 +284,30 @@ class _ClusterTraceKernel:
             self._lib = lib
         return self._lib
 
-    def __call__(self, o, d, n_valid: int, bounds, order, tri, origin_mt: bool):
+    def __call__(self, o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None):
         n_pad = o.shape[1]
         nc = bounds.shape[1]
         n_tiles = n_pad // TILE
         dev = o.device
-        for name, x, dt in (("o", o, torch.float32), ("d", d, torch.float32),
-                            ("bounds", bounds, torch.float32),
-                            ("order", order, torch.int32), ("tri", tri, torch.float32)):
+        operands = [("o", o, torch.float32), ("d", d, torch.float32),
+                    ("bounds", bounds, torch.float32),
+                    ("order", order, torch.int32), ("tri", tri, torch.float32)]
+        if tmax is not None:
+            operands.append(("tmax", tmax, torch.float32))
+        for name, x, dt in operands:
             if x.device != dev or x.dtype != dt or not x.is_contiguous():
                 raise ValueError(f"cluster_trace: {name} must be a contiguous {dt} "
                                  f"tensor on {dev}, got {x.dtype} on {x.device}")
         if (o.shape != (3, n_pad) or d.shape != (3, n_pad) or n_pad % TILE
                 or bounds.shape[0] != 8 or nc % GROUP
                 or order.shape not in ((1, nc), (n_tiles, nc))
-                or tri.shape != (12, nc * CLUSTER_B) or not 0 <= n_valid <= n_pad):
+                or tri.shape != (12, nc * CLUSTER_B) or not 0 <= n_valid <= n_pad
+                or (tmax is not None and tmax.shape != (n_pad,))):
             raise ValueError(
                 f"cluster_trace: bad shapes o {tuple(o.shape)} d {tuple(d.shape)} "
                 f"bounds {tuple(bounds.shape)} order {tuple(order.shape)} "
-                f"tri {tuple(tri.shape)} n_valid {n_valid}")
+                f"tri {tuple(tri.shape)} n_valid {n_valid} "
+                f"tmax {None if tmax is None else tuple(tmax.shape)}")
         t = torch.empty(n_pad, dtype=torch.float32, device=dev)
         prim = torch.empty(n_pad, dtype=torch.int32, device=dev)
         u = torch.empty(n_pad, dtype=torch.float32, device=dev)
@@ -307,7 +318,8 @@ class _ClusterTraceKernel:
         lib = self.library()
         with torch.cuda.device(dev):
             err = lib.cluster_trace_launch(
-                o.data_ptr(), d.data_ptr(), n_pad, n_valid, bounds.data_ptr(), nc,
+                o.data_ptr(), d.data_ptr(), None if tmax is None else tmax.data_ptr(),
+                n_pad, n_valid, bounds.data_ptr(), nc,
                 order.data_ptr(), int(order.shape[0] > 1), tri.data_ptr(),
                 int(origin_mt), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
                 v.data_ptr(), visited.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -322,34 +334,50 @@ class _ClusterTraceKernel:
 KERNEL = _ClusterTraceKernel()
 
 
-def cluster_trace(o, d, n_valid: int, bounds, order, tri, origin_mt: bool):
+def cluster_trace(o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None):
     """Closest hits of the padded planar wavefront (3, n_pad): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if o.device.type == "cuda":
-        return KERNEL(o, d, n_valid, bounds, order, tri, origin_mt)
+        return KERNEL(o, d, n_valid, bounds, order, tri, origin_mt, tmax)
     if o.device.type == "cpu":
-        return cluster_trace_plain(o, d, n_valid, bounds, order, tri, origin_mt)
+        return cluster_trace_plain(o, d, n_valid, bounds, order, tri, origin_mt, tmax)
     raise NotImplementedError(f"cluster_trace: no implementation for {o.device}")
 
 
 # ----------------------------------------------------------------- tracer
 
-def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: bool = False):
+def capacity_lanes(N: int, cap_frac: float) -> int:
+    """Kernel capacity of an `active`-masked sorted trace: cap_frac of N
+    rounded up to whole tiles, at least one tile, at most the padded
+    width.  Callers count capacity kills with the same rounding."""
+    n_pad = -(-N // TILE) * TILE
+    return min(n_pad, max(TILE, -(-int(N * cap_frac) // TILE) * TILE))
+
+
+def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: bool = False,
+                  tmax=None, active=None, cap=None):
     """The kernel's operands for the planar wavefront o, d (3, N):
-    ((o, d, n_valid, bounds, order, tri, origin_mt), perm), padded to whole
-    tiles.  sort_rays: the lanes go in coherence order and perm is that
-    lane order (n_pad,), else None.  The cluster order is the shared
-    origin's, per tile (sorted or tile_order), or the static one."""
+    ((o, d, n_valid, bounds, order, tri, origin_mt, tmax), perm), padded
+    to whole tiles.  tmax (N,) is padded with zeros (unbounded), or None.
+    sort_rays: the lanes go in coherence order and perm is that lane order
+    (n_pad,), else None; lanes outside `active` then get a zero direction
+    (they miss everything) and sort after the active ones, and with `cap`
+    the operands hold only the first cap sorted lanes.  The cluster order
+    is the shared origin's, per tile (sorted or tile_order), or the
+    static one."""
     N = o.shape[1]
     n_pad = -(-N // TILE) * TILE
-    o_p = torch.nn.functional.pad(o, (0, n_pad - N))
-    d_p = torch.nn.functional.pad(d, (0, n_pad - N))
+    rows = [o, d] if tmax is None else [o, d, tmax[None]]
+    if sort_rays and active is not None:
+        rows[1] = d * active[None]
+    rays = torch.nn.functional.pad(torch.cat(rows), (0, n_pad - N))
     perm = None
     if sort_rays:
-        perm = _coherence_order(scene, o, d, n_pad)
-        od = torch.cat([o_p, d_p]).index_select(1, perm)
-        o_p, d_p = od[0:3], od[3:6]
-    o_p, d_p = o_p.contiguous(), d_p.contiguous()
+        perm = _coherence_order(scene, o, d, n_pad, active)
+        rays = rays.index_select(1, perm if cap is None else perm[:cap])
+    n_run = rays.shape[1]
+    o_p, d_p = rays[0:3].contiguous(), rays[3:6].contiguous()
+    tmax_p = None if tmax is None else rays[6].contiguous()
     cb = scene.cluster_bounds
     tri = scene.cluster_tri
     nc = cb.shape[1]
@@ -360,11 +388,11 @@ def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: 
     elif sort_rays or tile_order:
         # tile centroids from the padded origin rows (padding zeros only
         # skew the last partial tile's heuristic order; pruning is exact)
-        cent = o_p.reshape(3, n_pad // TILE, TILE).mean(dim=2).T
+        cent = o_p.reshape(3, n_run // TILE, TILE).mean(dim=2).T
         order = _tile_order_from_cent(cent, cb, nc)
     else:
         order = _static_order(cb, nc)
-    return (o_p, d_p, N, cb, order, tri, origin_mt), perm
+    return (o_p, d_p, min(N, n_run), cb, order, tri, origin_mt, tmax_p), perm
 
 
 def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False,
@@ -377,15 +405,35 @@ def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False
     zero attributes.  sort_rays: coherence-sort the lanes around the
     trace (skipped below SMALL_WAVEFRONT lanes unless sort_small);
     otherwise the wavefront must arrive coherent (a static morton camera
-    wavefront with shared_origin, or a presorted carry with tile_order)."""
-    if tmax is not None or active is not None or cap_frac is not None:
-        raise NotImplementedError(f"tmax / active / cap_frac: {_UNPORTED}")
+    wavefront with shared_origin, or a presorted carry with tile_order).
+
+    tmax: optional (N,) per-lane bound on the hit distance (shadow rays
+    know their target's); hits at t >= tmax come back as misses, lanes
+    with tmax <= 0 are unbounded.  Exact for `prim == target` consumers.
+    active + cap_frac (sorted mode only): inactive lanes come back as
+    misses, and the kernel runs on `capacity_lanes(N, cap_frac)` lanes;
+    active lanes beyond that capacity are cut to misses, so callers read
+    only active lanes and size cap_frac with headroom."""
     N = o.shape[1]
     if N <= SMALL_WAVEFRONT and not sort_small:
         sort_rays = False
-    args, perm = kernel_inputs(scene, o, d, sort_rays, shared_origin, tile_order)
+    cap = None
+    if active is not None and cap_frac is not None and sort_rays:
+        cap = capacity_lanes(N, cap_frac)
+        if cap >= -(-N // TILE) * TILE:
+            cap = None  # the capacity covers every lane: a plain sorted trace
+    args, perm = kernel_inputs(scene, o, d, sort_rays, shared_origin, tile_order,
+                               tmax, active, cap)
     t, prim, u, v, _ = cluster_trace(*args)
     if perm is not None:
+        if cap is not None:
+            # lanes beyond capacity unsort as misses with t = 0, so the
+            # sphere tail below cannot bring them back
+            cut = perm.shape[0] - cap
+            t = torch.cat([t, t.new_zeros(cut)])
+            prim = torch.cat([prim, prim.new_full((cut,), -1)])
+            u = torch.cat([u, u.new_zeros(cut)])
+            v = torch.cat([v, v.new_zeros(cut)])
         # live lanes sort before padding, so lanes [0, N) hold every hit;
         # gather them back to caller order through the inverse permutation
         inv = torch.empty_like(perm)
@@ -411,10 +459,16 @@ def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False
         discr = torch.clamp(b * b - 4.0 * a * cc, min=0.0)
         ts = (-b - torch.sqrt(discr)) / (2.0 * torch.clamp(a, min=1e-12))
         hit = (disc2 < radius * radius) & (ts > 0.0) & (ts < t)
+        if active is not None:
+            hit = hit & active  # the tail sees the raw rays of parked lanes
         t = torch.where(hit, ts, t)
         prim = torch.where(hit, pid, prim)
         uv = torch.where(hit[None, :], 0.0, uv)
 
+    if tmax is not None or cap is not None:
+        # the miss contract: lanes cut by their bound carry t == tmax and
+        # capacity-cut lanes t == 0, both with prim == -1
+        t = torch.where(prim < 0, C.INF, t)
     if not want_attr:
         return t, prim, uv
     attr = scene.prim_attr[:, prim.clamp(min=0).long()]

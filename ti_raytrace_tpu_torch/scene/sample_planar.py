@@ -1,20 +1,19 @@
 """Planar emitter sampling from the light pack (twin of
 ti_raytrace_tpu/scene/sample_planar.py: `_pick_light`, `_point_on_light`,
-`sample_li`).
+`sample_li` and the emitter-side `sample_light` of BDPT light subpaths).
 
 The chosen light's column of scene.light_attr (LIGHT_A, L) is fetched by
 an exact index gather.  The reference extracts it with a one-hot matmul
 at HIGHEST precision because a bf16 pass rounded prim ids and light
 positions and killed Veach's NEE on the TPU; a matmul here could run in
 TF32 on the card and bring that fault back, so none is used.
-Emitter-side sampling (`sample_light`) belongs to the BDPT slice (ROADMAP
-'to port').
 """
 
 import torch
 
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.ops import planar as pv
+from ti_raytrace_tpu_torch.utils.sampling import map_to_disk
 
 
 def _pick_light(scene, u_pick):
@@ -105,4 +104,65 @@ def sample_li(scene, shade_pos, u3):
         dir_pdf=dir_pdf,
         dir_pdf_std=dir_pdf_std,
         vis=vis,
+    )
+
+
+def sample_light(scene, u6):
+    """Emitter-side sample for BDPT light subpaths (the reference's
+    Scene.sample_light), planar.  u6: (6, N) uniforms (light pick, point,
+    direction, laser disk angle).  Returns dict(pos, normal, direction,
+    emission, prim, choice_pdf, dir_pdf, dir_pdf_std); dir_pdf is the
+    reference's density floored at 0.01, dir_pdf_std the unfloored one
+    (the corrected estimator's)."""
+    col, _ = _pick_light(scene, u6[0])
+    pos, nrm, is_tri = _point_on_light(col, u6[1], u6[2])
+
+    emission = col[18:21]
+    area = col[21]
+    prim = col[22].to(torch.int32)
+    L = float(scene.n_lights)
+    choice_pdf = 1.0 / (L * torch.clamp(area, min=1e-12))
+
+    local = pv.cosine_sample_hemisphere(u6[3], u6[4])
+    dir_pdf_std = local[2] / C.PI
+    dir_pdf = torch.clamp(dir_pdf_std, min=0.01)
+    direction = pv.to_world(local, nrm)
+
+    stype = col[24]
+    is_shape = ~is_tri
+    is_spot = is_shape & (stype == C.SHAPE_SPOT)
+    x1, x2, scale = col[28], col[29], col[30]
+    r_u, phi = map_to_disk(u6[3], u6[4])
+    r1 = scale * torch.tan(x1)
+    r2 = scale * torch.tan(x2)
+    r = r_u * r2
+    spot_fade = torch.where(r > r1, 1.0 - (r - r1) / torch.clamp(r2 - r1, min=1e-12), 1.0)
+    spot_pt = pv.p3(r * torch.cos(phi), r * torch.sin(phi),
+                    torch.sqrt(torch.clamp(scale * scale - r * r, min=0.0)))
+    spot_dir = pv.to_world(spot_pt, nrm)
+    emission = pv.where(is_spot, emission * spot_fade[None], emission)
+    direction = pv.where(is_spot, spot_dir, direction)
+    dir_pdf = torch.where(is_spot, 1.0, dir_pdf)
+    dir_pdf_std = torch.where(is_spot, 1.0, dir_pdf_std)
+
+    is_laser = is_shape & (stype == C.SHAPE_LASER)
+    radius = col[28]
+    phi_l = u6[5] * C.TWO_PI
+    disk_off = pv.to_world(pv.p3(radius * torch.cos(phi_l), radius * torch.sin(phi_l),
+                                 torch.zeros_like(phi_l)), nrm)
+    pos = pv.where(is_laser, pos + disk_off, pos)
+    direction = pv.where(is_laser, nrm, direction)
+    dir_pdf = torch.where(is_laser, 1.0, dir_pdf)
+    dir_pdf_std = torch.where(is_laser, 1.0, dir_pdf_std)
+    choice_pdf = torch.where(is_laser, 1.0 / L, choice_pdf)
+
+    return dict(
+        pos=pos,
+        normal=nrm,
+        direction=direction,
+        emission=emission,
+        prim=prim,
+        choice_pdf=choice_pdf,
+        dir_pdf=dir_pdf,
+        dir_pdf_std=dir_pdf_std,
     )

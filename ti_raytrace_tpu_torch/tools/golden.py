@@ -1,6 +1,6 @@
 """Golden-image gate of the port (twin of ti_raytrace_tpu/tools/golden.py):
 
-    python -m ti_raytrace_tpu_torch.tools.golden --scene veach_pt \
+    python -m ti_raytrace_tpu_torch.tools.golden --scene veach_bdpt \
         [--frames N] [--size 512] [--device cuda] [--out veach.png]
 
 Renders a reference scene, tone-maps it with the reference's pipeline
@@ -43,7 +43,6 @@ _UNPORTED = {
     "cornell_box": "the dense tracer + the cornell/single_model slice",
     "sky_dome": "spectral PT",
     "spectral_box": "spectral PT",
-    "veach_bdpt": "BDPT RGB",
     "prism_rainbow": "spectral BDPT and prism",
 }
 
@@ -52,24 +51,33 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def render_scene(name: str, frames: int, size: int, integrator: str, device) -> tuple:
+def render_scene(name: str, frames: int, size: int, integrator, device) -> tuple:
     """The scene's film tone-mapped to sRGB (W, H, 3) in [0, 1], and the
-    host seconds per frame (each batch of 8 ends in a synchronize)."""
+    host seconds per frame (each batch ends in a synchronize).  The
+    scene's own integrator unless `integrator` overrides it; BDPT renders
+    as the CLI does (render_frame_sliced in 2 slices, the scene's walk
+    compaction and shadow cap)."""
     from ti_raytrace_tpu_torch import film as film_mod
     from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
-    from ti_raytrace_tpu_torch.integrators import pt_rgb
+    from ti_raytrace_tpu_torch.integrators import bdpt_rgb, pt_rgb
 
     scene, cfg = EXAMPLES[name](device)
-    if integrator != "pt_rgb":
+    integrator = integrator or cfg.integrator
+    if integrator not in ("pt_rgb", "bdpt_rgb"):
         raise NotImplementedError(f"integrator {integrator!r}: ROADMAP 'to port'")
     spec, cam = make_camera(scene, cfg, size, size)
     nee = pt_rgb.has_nee_materials(scene)
     fl = film_mod.new_film(size, size, device=device)
     t0 = time.perf_counter()
     while fl.frame < frames:
-        fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl,
-                                              n_frames=min(8, frames - fl.frame),
-                                              compaction=cfg.compaction, nee=nee)
+        if integrator == "bdpt_rgb":
+            fl, kills = bdpt_rgb.render_film_frames(
+                scene, spec, cam, fl, n_frames=min(4, frames - fl.frame), n_slices=2,
+                walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
+        else:
+            fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl,
+                                                  n_frames=min(8, frames - fl.frame),
+                                                  compaction=cfg.compaction, nee=nee)
         if kills:
             raise RuntimeError(f"{name}: {kills} compaction overflow kills")
     if device.type == "cuda":

@@ -1,8 +1,27 @@
 """Monte-Carlo sampling helpers (twin of ti_raytrace_tpu/utils/sampling.py,
-the function the NEE path calls).  The planar samplers live in
+the functions the NEE and BDPT paths call).  The planar samplers live in
 ops/planar.py."""
 
 import torch
+
+from ti_raytrace_tpu_torch.core.constants import PI
+
+
+def map_to_disk(u1, u2):
+    """Concentric square -> disk map without data-dependent branches.
+    Returns (r, phi)."""
+    a = 2.0 * u1 - 1.0
+    b = 2.0 * u2 - 1.0
+    use_a = torch.abs(a) > torch.abs(b)
+    r = torch.where(use_a, torch.abs(a), torch.abs(b))
+    safe_a = torch.where(a == 0.0, 1.0, a)
+    safe_b = torch.where(b == 0.0, 1.0, b)
+    phi = torch.where(
+        use_a,
+        (PI / 4.0) * (b / safe_a) + torch.where(a < 0.0, PI, 0.0),
+        (PI / 4.0) * (2.0 - a / safe_b) + torch.where(b < 0.0, PI, 0.0),
+    )
+    return r, torch.where(r == 0.0, 0.0, phi)
 
 
 def power_heuristic(a, b):

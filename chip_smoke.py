@@ -14,29 +14,33 @@ Phases, each printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
   2. kernel build: csrc/cluster_trace.cu compiled with nvcc, timed;
-  3. kernel vs cluster_trace_plain on two real wavefronts of the scene:
-     the 512^2 camera wavefront (shared origin, origin-MT table) and a
-     merged deep-bounce wavefront from the port's own path (presorted
-     carry, per-tile order, generic MT) — t within rtol 1e-5, prim ids
-     equal except on t-ties (at most 0.1% of hits);
+  3. kernel vs cluster_trace_plain on the bench's own wavefronts, recorded
+     at the tracer during one merged group of the main path (16 frames):
+     the 512^2 camera wavefront (shared origin, origin-MT table) and the
+     three compacted deep widths (838,848, 174,752 and 32,768 lanes,
+     presorted, per-tile order, generic MT) — t within rtol 1e-5, prim ids
+     equal except on t-ties (at most 0.1% of hits), misses and visited
+     counts equal; per wavefront the kernel's and the plain version's
+     times, the clusters visited per tile, the candidate (ray, cluster)
+     pairs, the super-box entries and the bound
+     (tools/kernel_wavefronts.bound) with its share;
   4. main path: a warm-up dispatch, then timed dispatches of KF=16
      frames in merged groups of 16 with the bench schedule; zero overflow
-     kills, a finite non-negative HDR and kernel launches > 0;
+     kills, a finite non-negative HDR and kernel launches > 0, and the
+     kernel's launches per frame by live width (its wrapper's counts);
   5. the same 32^2 render on CUDA and on the CPU (plain version) from one
      seed, compared pixel by pixel;
   6. the Veach scene on CUDA: kernel vs plain on two sorted-mode
-     wavefronts of a 512^2 frame — bounce 1 of the exact path and the
-     camera bounce's NEE shadow rays — with phase 3's bar;
+     wavefronts of a 512^2 veach_pt frame — the camera bounce's NEE
+     shadow rays and bounce 1 of the exact path — with phase 3's bar;
   7. veach_pt: 512^2, max depth 15, NEE, exact path, VEACH_FRAMES frames
      in one render_film_frames call; zero overflow kills, a finite
      non-negative HDR with mean > 0, kernel launches > 0, ms/frame;
   8. the same 32^2 Veach render on CUDA and on the CPU, as in phase 5;
-  9. veach_bdpt: kernel vs plain on two sorted-mode wavefronts of one
-     512^2 slice, recorded at bdpt_rgb's calls of the tracer — the fused
-     depth-1 eye+light walk wavefront (262,144 lanes) and the shadow
-     batch of all 20 strategies (2,621,440 lanes, with per-lane tmax) —
-     with phase 3's bar and equal visited counts; the plain version runs
-     on blocks of PLAIN_TILES tiles to bound its memory;
+  9. veach_bdpt: kernel vs plain on two sorted-mode wavefronts of slice
+     0 of a 512^2 frame — the fused depth-1 eye+light walk wavefront
+     (262,144 lanes) and the shadow batch of all 20 strategies (2,621,440
+     lanes, with per-lane tmax) — with phase 3's bar;
  10. veach_bdpt at 512^2, MAX_DEPTH 5, 2 slices, BDPT_FRAMES frames
      through render_frame_sliced + film.accumulate: zero walk overflow, a
      finite non-negative HDR with mean > 0, kernel launches > 0,
@@ -44,11 +48,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      (the splat is a deterministic scatter-add);
  11. the same 32^2 BDPT render on CUDA and on the CPU, as in phase 5.
 
-The next-to-last line is a JSON object describing the kernel (launches
-summed over the three paths' counted runs, max_abs_err the worst over
-every compared wavefront); the last line is {"ok": true, "device":
-{...}}.  Without CUDA, or without the package beside it, the script
-exits non-zero and prints no result.
+Every wavefront is recorded at the tracer's call of the kernel
+(tools/kernel_wavefronts.py), and the plain version runs on blocks of
+PLAIN_TILES tiles to bound its memory.  The next-to-last line is a JSON
+object describing the kernel (launches summed over the three paths'
+counted runs, max_abs_err the worst over every compared wavefront, ms,
+plain_ms and bound_ms of the bench camera wavefront, and each compared
+wavefront's figures with its width's launches per frame in its path's
+counted run); the last line is {"ok": true, "device": {...}}.
+Without CUDA, or without the package beside it, the script exits
+non-zero and prints no result.
 """
 
 import json
@@ -61,11 +70,11 @@ SIZE = 512
 KF = 16          # frames per dispatch
 GROUP = 16       # frames per merged group
 TIMED_DISPATCHES = 2
-DEEP_FRAMES = 2  # frames whose compacted carries form the deep wavefront
+KERNEL_REPS = 10  # timed kernel launches per compared wavefront
 SMALL = 32       # phase 5 and 8 film size
 VEACH_FRAMES = 8
 BDPT_FRAMES = 4
-PLAIN_TILES = 1024  # tiles per block of the plain version in phase 9
+PLAIN_TILES = 1024  # tiles per block of the plain version
 T_RTOL = 1e-5
 PRIM_TIE_FRAC = 1e-3
 
@@ -76,21 +85,6 @@ def log(*a):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
-
-
-def _time_ms(fn, reps, sync):
-    """Mean wall time of fn over reps runs, each bracketed by CUDA events."""
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    sync()
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    stop.record()
-    sync()
-    return start.elapsed_time(stop) / reps, out
 
 
 def phase_device():
@@ -122,34 +116,7 @@ def phase_build():
             log(f"[2 build] ptxas: {line.strip()}")
 
 
-def _deep_wavefront(scene, spec, cam, key):
-    """A merged deep-bounce wavefront of the port's own path: DEEP_FRAMES
-    frames' prologues (bounce 0, flush, compact to the phase-1 width),
-    concatenated and presorted as _while_bounces does before bounce 1."""
-    import torch
-
-    from ti_raytrace_tpu_torch.core import rng
-    from ti_raytrace_tpu_torch.examples.scenes import BENCH_SCHEDULE_MERGED
-    from ti_raytrace_tpu_torch.integrators import pt_rgb
-
-    N = spec.width * spec.height
-    w1 = pt_rgb._phase_width(N, BENCH_SCHEDULE_MERGED[0][1])
-    carries = []
-    for g in range(DEEP_FRAMES):
-        k_cam, k_path = rng.split(key)
-        o, d, _ = pt_rgb._camera_rays(spec, cam, g, k_cam)
-        c = pt_rgb._bounce(scene, pt_rgb._new_carry(o, d), rng.fold_in(k_path, 0),
-                           shared_origin=o[:, 0])
-        c, _ = pt_rgb._flush(c, pt_rgb._new_accum(N, o.device), identity=True)
-        c, _ = pt_rgb._compact(c, w1)
-        carries.append(c)
-        key = rng.split(key)[0]
-    carry = {k: torch.cat([c[k] for c in carries], dim=-1) for k in carries[0]}
-    carry = pt_rgb._sort_carry(scene, carry)
-    return carry["origin"].contiguous(), carry["direction"].contiguous()
-
-
-def _plain_blocks(inputs, tiles):
+def _plain_blocks(inputs, tiles, stats):
     """cluster_trace_plain over blocks of `tiles` ray tiles (the order
     rows of a per-tile order go with their tiles), concatenated: the
     same result as one call, with bounded temporaries."""
@@ -157,7 +124,7 @@ def _plain_blocks(inputs, tiles):
 
     from ti_raytrace_tpu_torch.ops.cluster_trace import TILE, cluster_trace_plain
 
-    o, d, n_valid, bounds, order, tri, origin_mt, tmax = inputs
+    o, d, n_valid, bounds, order, tri, origin_mt, tmax, supers = inputs
     n_pad = o.shape[1]
     step = tiles * TILE
     outs = []
@@ -166,25 +133,25 @@ def _plain_blocks(inputs, tiles):
         rows = order if order.shape[0] == 1 else order[a // TILE:b // TILE]
         outs.append(cluster_trace_plain(
             o[:, a:b], d[:, a:b], min(max(n_valid - a, 0), b - a), bounds, rows, tri,
-            origin_mt, None if tmax is None else tmax[a:b]))
+            origin_mt, None if tmax is None else tmax[a:b], supers, stats=stats))
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
-def _compare(name, inputs, sync, tag="[3 kernel]", plain_tiles=None):
-    """Kernel vs plain version on one wavefront; returns (max |dt|,
-    kernel ms, plain ms).  plain_tiles: run the plain version in blocks
-    of that many tiles."""
+def _compare(name, inputs, tag):
+    """Kernel vs plain version on one wavefront: the bar of phase 3, then
+    a row of the wavefront's figures (times, visits, candidate pairs, the
+    bound and its share)."""
     import torch
 
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL, cluster_trace_plain
+    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import bound, time_ms
 
-    def plain():
-        if plain_tiles:
-            return _plain_blocks(inputs, plain_tiles)
-        return cluster_trace_plain(*inputs)
-
-    ms_k, (t_k, p_k, u_k, v_k, vis_k) = _time_ms(lambda: KERNEL(*inputs), 5, sync)
-    ms_p, (t_p, p_p, u_p, v_p, vis_p) = _time_ms(plain, 1, sync)
+    ms_k, (t_k, p_k, u_k, v_k, vis_k) = time_ms(lambda: KERNEL(*inputs), KERNEL_REPS)
+    stats = {}
+    t0 = time.perf_counter()
+    t_p, p_p, u_p, v_p, vis_p = _plain_blocks(inputs, PLAIN_TILES, stats)
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
     n = inputs[2]
     t_k, t_p, p_k, p_p = t_k[:n], t_p[:n], p_k[:n], p_p[:n]
     hit = p_p >= 0
@@ -198,35 +165,62 @@ def _compare(name, inputs, sync, tag="[3 kernel]", plain_tiles=None):
     miss_ok = bool((p_k[~hit] == p_p[~hit]).all())
     duv = float(torch.maximum((u_k - u_p)[:n].abs().max(), (v_k - v_p)[:n].abs().max()))
     vis_ok = bool((vis_k == vis_p).all())
+    pairs, entries = int(stats["pairs"]), int(stats["super_entries"])
+    bound_ms, bound_by, ops, nbytes = bound(inputs, pairs, entries)
+    row = dict(wavefront=name, lanes=n, ms=ms_k, plain_ms=ms_p,
+               visited_per_tile=float(vis_k.float().mean()), pairs=pairs,
+               super_entries=entries, ops=ops, bytes=nbytes, bound_ms=bound_ms,
+               bound_by=bound_by, share=bound_ms / ms_k)
     log(f"{tag} {name}: {n} lanes, {n_hit} hits; max|dt| {max_dt:.3e} "
         f"(rtol {T_RTOL} ok={t_ok}); prim mismatch {frac:.2e} of hits "
         f"(ties ok={ties_ok}); misses equal={miss_ok}; max|duv| {duv:.3e}; "
-        f"visited equal={vis_ok} "
-        f"(mean {float(vis_k.float().mean()):.1f} clusters/tile); "
-        f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
+        f"visited equal={vis_ok}")
+    log(f"{tag} {name}: kernel {ms_k:.4f} ms, plain {ms_p:.3f} ms; "
+        f"{row['visited_per_tile']:.2f} clusters visited per tile; {pairs} candidate "
+        f"pairs; {entries} super-box entries; bound {bound_ms:.4f} ms by {bound_by} "
+        f"({ops:.4g} ops, {nbytes} B); share {row['share']:.4f}")
     if not (n_hit > 0 and t_ok and frac <= PRIM_TIE_FRAC and ties_ok and miss_ok and vis_ok):
         fail(f"kernel disagrees with cluster_trace_plain on the {name} wavefront")
-    return max_dt, ms_k, ms_p
+    return max_dt, row
 
 
-def phase_kernel(scene, spec, cam, sync):
+def _compare_all(waves, tag):
+    """_compare on each recorded wavefront.  Returns (max |dt|, rows)."""
     import torch
 
-    from ti_raytrace_tpu_torch.core import rng
-    from ti_raytrace_tpu_torch.integrators import pt_rgb
-    from ti_raytrace_tpu_torch.ops.cluster_trace import kernel_inputs
-
-    key = rng.PRNGKey(0)
-    o, d, _ = pt_rgb._camera_rays(spec, cam, 1, rng.split(key)[0])
-    cam_in = kernel_inputs(scene, o, d, False, shared_origin=o[:, 0].contiguous())[0]
-    err_c, ms_c, plain_c = _compare("camera 512^2 (shared origin, origin-MT)", cam_in, sync)
-    do, dd = _deep_wavefront(scene, spec, cam, key)
-    deep_in = kernel_inputs(scene, do, dd, False, tile_order=True)[0]
-    err_d, ms_d, plain_d = _compare("merged deep bounce (per-tile order, generic MT)",
-                                    deep_in, sync)
-    del cam_in, deep_in
+    errs, rows = [], []
+    for name, inputs in waves:
+        err, row = _compare(name, inputs, tag)
+        errs.append(err)
+        rows.append(row)
+    del waves
     torch.cuda.empty_cache()
-    return max(err_c, err_d), ms_c, plain_c
+    return max(errs), rows
+
+
+def phase_kernel(scene, spec, cam, cfg):
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import bench_wavefronts
+
+    waves, _ = bench_wavefronts(scene, spec, cam, cfg)
+    if [a[2] for _, a in waves] != [SIZE * SIZE, 838848, 174752, 32768]:
+        fail(f"one merged group launched the widths {[a[2] for _, a in waves]}")
+    return _compare_all(waves, "[3 kernel]")
+
+
+def _log_widths(tag, per_width, frames):
+    """Logs and returns the counted run's kernel launches per frame by
+    live width (the wrapper's `launches_by_width`)."""
+    per_frame = {w: c / frames for w, c in per_width.items()}
+    log(f"{tag} kernel launches per frame by live width: " + ", ".join(
+        f"{w}: {c:g}" for w, c in sorted(per_frame.items(), reverse=True)))
+    return per_frame
+
+
+def _attach_launches(rows, per_frame):
+    """Each compared wavefront's row gains its width's launches per frame
+    in its path's counted run (none launched: 0)."""
+    for row in rows:
+        row["launches_per_frame"] = per_frame.get(row["lanes"], 0.0)
 
 
 def phase_main_path(scene, spec, cam, cfg, sync):
@@ -249,7 +243,7 @@ def phase_main_path(scene, spec, cam, cfg, sync):
     log(f"[4 main] warm-up dispatch: {KF} frames in {time.perf_counter() - t0:.2f} s, "
         f"overflow kills {kills}")
 
-    KERNEL.launches = 0  # count only the timed main-path run below
+    KERNEL.reset_counts()  # count only the timed main-path run below
     times = []
     for _ in range(TIMED_DISPATCHES):
         t0 = time.perf_counter()
@@ -257,7 +251,7 @@ def phase_main_path(scene, spec, cam, cfg, sync):
         sync()
         times.append(time.perf_counter() - t0)
         kills += ov
-    launches = KERNEL.launches
+    launches, per_width = KERNEL.launches, dict(KERNEL.launches_by_width)
     hdr = fl.hdr
     ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
               and bool((hdr >= 0).all()) and float(hdr.mean()) > 0.0)
@@ -265,14 +259,16 @@ def phase_main_path(scene, spec, cam, cfg, sync):
     log(f"[4 main] {SIZE}^2 merged G={GROUP}, {TIMED_DISPATCHES} timed dispatches of "
         f"{KF} frames: ms/frame " + ", ".join(f"{m:.3f}" for m in ms)
         + f" (mean {sum(ms) / len(ms):.3f}); overflow kills {kills}; kernel launches "
-        f"{launches}; frames {fl.frame}; hdr mean {float(hdr.mean()):.5f}")
+        f"{launches} ({launches / (TIMED_DISPATCHES * KF):g} per frame); frames {fl.frame}; "
+        f"hdr mean {float(hdr.mean()):.5f}")
+    per_frame = _log_widths("[4 main]", per_width, TIMED_DISPATCHES * KF)
     if kills != 0:
         fail(f"{kills} compaction overflow kills on the main path")
     if not ok_img:
         fail("the main path's HDR is not a finite, non-negative (W, H, 3) image")
     if launches == 0:
         fail("the main path never launched the cluster_trace kernel")
-    return launches
+    return launches, per_frame
 
 
 def _small_parity(tag, render):
@@ -312,49 +308,11 @@ def phase_small_parity(cfg):
     _small_parity("[5 parity]", render)
 
 
-def _veach_wavefronts(scene, spec, cam):
-    """Two sorted-mode wavefronts of a 512^2 Veach frame, as the exact
-    path traces them: bounce 1 (the carry after the camera bounce) and
-    the camera bounce's NEE shadow rays, recorded at pt_rgb's call of
-    accel.trace."""
-    from ti_raytrace_tpu_torch.core import rng
-    from ti_raytrace_tpu_torch.integrators import pt_rgb
+def phase_veach_kernel(scene, spec, cam):
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import veach_wavefronts
 
-    k_cam, k_path = rng.split(rng.PRNGKey(1))
-    o, d, _ = pt_rgb._camera_rays(spec, cam, 0, k_cam)
-    shadow = []
-    accel_trace = pt_rgb.trace
-
-    def recording_trace(scene, o, d, **kw):
-        shadow.append((o, d))
-        return accel_trace(scene, o, d, **kw)
-
-    pt_rgb.trace = recording_trace
-    try:
-        carry = pt_rgb._bounce(scene, pt_rgb._new_carry(o, d), rng.fold_in(k_path, 0),
-                               nee=True, shared_origin=o[:, 0])
-    finally:
-        pt_rgb.trace = accel_trace
-    if len(shadow) != 1:
-        fail(f"the camera bounce traced {len(shadow)} shadow wavefronts, not 1")
-    return (carry["origin"], carry["direction"]), shadow[0]
-
-
-def phase_veach_kernel(scene, spec, cam, sync):
-    import torch
-
-    from ti_raytrace_tpu_torch.ops.cluster_trace import kernel_inputs
-
-    (bo, bd), (so, sd) = _veach_wavefronts(scene, spec, cam)
-    errs, ms = [], []
-    for name, o, d in (("bounce 1 (sorted, per-tile order)", bo, bd),
-                       ("NEE shadow rays (sorted, per-tile order)", so, sd)):
-        err, ms_k, ms_p = _compare(name, kernel_inputs(scene, o, d, True)[0], sync,
-                                   tag="[6 veach kernel]")
-        errs.append(err)
-        ms.append((ms_k, ms_p))
-    torch.cuda.empty_cache()
-    return max(errs), ms
+    waves, _ = veach_wavefronts(scene, spec, cam)
+    return _compare_all(waves, "[6 veach kernel]")
 
 
 def phase_veach_path(scene, spec, cam, cfg, sync):
@@ -368,27 +326,28 @@ def phase_veach_path(scene, spec, cam, cfg, sync):
     if not nee:
         fail("the Veach scene has no material that takes NEE")
     fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
-    KERNEL.launches = 0  # count only this path's run
+    KERNEL.reset_counts()  # count only this path's run
     t0 = time.perf_counter()
     fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=VEACH_FRAMES,
                                           compaction=cfg.compaction, nee=nee)
     sync()
     seconds = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches, per_width = KERNEL.launches, dict(KERNEL.launches_by_width)
     hdr = fl.hdr
     ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
               and bool((hdr >= 0).all()) and float(hdr.mean()) > 0.0)
     log(f"[7 veach] veach_pt {SIZE}^2, max depth {pt_rgb.MAX_DEPTH}, NEE, exact path: "
         f"{VEACH_FRAMES} frames in {seconds:.2f} s = {seconds / VEACH_FRAMES * 1e3:.3f} "
-        f"ms/frame; overflow kills {kills}; kernel launches {launches}; "
-        f"hdr mean {float(hdr.mean()):.5f}")
+        f"ms/frame; overflow kills {kills}; kernel launches {launches} "
+        f"({launches / VEACH_FRAMES:g} per frame); hdr mean {float(hdr.mean()):.5f}")
+    per_frame = _log_widths("[7 veach]", per_width, VEACH_FRAMES)
     if kills != 0:
         fail(f"{kills} overflow kills on the veach_pt path")
     if not ok_img:
         fail("the veach_pt HDR is not a finite, non-negative (W, H, 3) image")
     if launches == 0:
         fail("the veach_pt path never launched the cluster_trace kernel")
-    return launches
+    return launches, per_frame
 
 
 def phase_veach_parity(cfg):
@@ -407,60 +366,13 @@ def phase_veach_parity(cfg):
     _small_parity("[8 veach parity]", render)
 
 
-def _bdpt_wavefronts(scene, spec, cam):
-    """Two sorted-mode wavefronts of slice 0 of a 512^2 veach_bdpt frame,
-    recorded at bdpt_rgb's calls of the tracer: the fused depth-1 eye +
-    light walk trace and the shadow batch (with its tmax)."""
-    from ti_raytrace_tpu_torch.core import rng
-    from ti_raytrace_tpu_torch.integrators import bdpt_rgb
+def phase_bdpt_kernel(scene, spec, cam):
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import bdpt_wavefronts
 
-    walks, shadows = [], []
-    accel_trace, accel_shaded = bdpt_rgb.trace, bdpt_rgb.trace_shaded
-
-    def recording_shaded(scene, o, d, **kw):
-        walks.append((o, d))
-        return accel_shaded(scene, o, d, **kw)
-
-    def recording_trace(scene, o, d, **kw):
-        shadows.append((o, d, kw))
-        return accel_trace(scene, o, d, **kw)
-
-    bdpt_rgb.trace, bdpt_rgb.trace_shaded = recording_trace, recording_shaded
-    try:
-        keys = rng.split(rng.PRNGKey(2), 4)
-        o, d = bdpt_rgb._camera_rays(spec, cam, 1, keys[0])
-        ns = o.shape[1] // 2
-        bdpt_rgb._render_slice(scene, spec, cam, o[:, :ns], d[:, :ns], keys, 0,
-                               bdpt_rgb.MAX_DEPTH, None, None)
-    finally:
-        bdpt_rgb.trace, bdpt_rgb.trace_shaded = accel_trace, accel_shaded
-    if len(walks) != bdpt_rgb.MAX_DEPTH + 1 or len(shadows) != 1:
-        fail(f"one BDPT slice traced {len(walks)} walk and {len(shadows)} shadow "
-             f"wavefronts, not {bdpt_rgb.MAX_DEPTH + 1} and 1")
-    so, sd, kw = shadows[0]
-    if kw.get("tmax") is None or kw.get("active") is not None:
-        fail("the BDPT shadow batch is not a tmax-bounded trace without a cap")
-    return walks[0], (so, sd, kw["tmax"])
-
-
-def phase_bdpt_kernel(scene, spec, cam, sync):
-    import torch
-
-    from ti_raytrace_tpu_torch.ops.cluster_trace import kernel_inputs
-
-    (wo, wd), (so, sd, tmax) = _bdpt_wavefronts(scene, spec, cam)
-    errs, ms = [], []
-    for name, o, d, tm in (("fused depth-1 walk (sorted)", wo, wd, None),
-                           ("shadow batch (sorted, tmax)", so, sd, tmax)):
-        inputs = kernel_inputs(scene, o, d, True, tmax=tm)[0]
-        n_blocks = -(-inputs[0].shape[1] // (PLAIN_TILES * 256))
-        err, ms_k, ms_p = _compare(f"{name}, plain in {n_blocks} block(s)", inputs, sync,
-                                   tag="[9 bdpt kernel]", plain_tiles=PLAIN_TILES)
-        errs.append(err)
-        ms.append((ms_k, ms_p))
-        del inputs
-    torch.cuda.empty_cache()
-    return max(errs), ms
+    waves, widths = bdpt_wavefronts(scene, spec, cam)
+    if widths.count(SIZE * SIZE // 2 * 20) != 2 or waves[0][1][7] is not None:
+        fail(f"one BDPT frame launched the widths {widths}")
+    return _compare_all(waves, "[9 bdpt kernel]")
 
 
 def phase_bdpt_path(scene, spec, cam, cfg, sync):
@@ -481,20 +393,21 @@ def phase_bdpt_path(scene, spec, cam, cfg, sync):
     fl, overflow = frames(fl, 1)  # warm-up
     sync()
     log(f"[10 bdpt] warm-up frame {time.perf_counter() - t0:.2f} s, overflow {overflow}")
-    KERNEL.launches = 0  # count only the timed run below
+    KERNEL.reset_counts()  # count only the timed run below
     t0 = time.perf_counter()
     fl, ov = frames(fl, BDPT_FRAMES)
     sync()
     seconds = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches, per_width = KERNEL.launches, dict(KERNEL.launches_by_width)
     overflow += ov
     hdr = fl.hdr
     ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
               and bool((hdr >= 0).all()) and float(hdr.mean()) > 0.0)
     log(f"[10 bdpt] veach_bdpt {SIZE}^2, MAX_DEPTH {bdpt_rgb.MAX_DEPTH}, 2 slices: "
         f"{BDPT_FRAMES} frames in {seconds:.2f} s = {seconds / BDPT_FRAMES * 1e3:.3f} "
-        f"ms/frame; walk overflow {overflow}; kernel launches {launches}; "
-        f"hdr mean {float(hdr.mean()):.5f}")
+        f"ms/frame; walk overflow {overflow}; kernel launches {launches} "
+        f"({launches / BDPT_FRAMES:g} per frame); hdr mean {float(hdr.mean()):.5f}")
+    per_frame = _log_widths("[10 bdpt]", per_width, BDPT_FRAMES)
     key = rng.PRNGKey(7)
     a = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
     b = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
@@ -509,7 +422,7 @@ def phase_bdpt_path(scene, spec, cam, cfg, sync):
         fail("the veach_bdpt path never launched the cluster_trace kernel")
     if not same:
         fail("two renders of one BDPT frame from one key differ")
-    return launches
+    return launches, per_frame
 
 
 def phase_bdpt_parity(cfg):
@@ -551,8 +464,9 @@ def main():
     spec, cam = make_camera(scene, cfg, SIZE, SIZE)
     log(f"[3 kernel] scene: {scene.n_prims} prims, {scene.cluster_bounds.shape[1]} "
         f"clusters, built in {time.perf_counter() - t0:.2f} s")
-    max_err, ms, plain_ms = phase_kernel(scene, spec, cam, sync)
-    launches = phase_main_path(scene, spec, cam, cfg, sync)
+    max_err, rows = phase_kernel(scene, spec, cam, cfg)
+    launches, per_frame = phase_main_path(scene, spec, cam, cfg, sync)
+    _attach_launches(rows, per_frame)
     phase_small_parity(cfg)
     del scene
     torch.cuda.empty_cache()
@@ -563,21 +477,22 @@ def main():
     log(f"[6 veach kernel] scene: {vscene.n_prims} prims, {vscene.n_lights} lights, "
         f"{vscene.cluster_bounds.shape[1]} clusters, built in "
         f"{time.perf_counter() - t0:.2f} s")
-    err_v, veach_ms = phase_veach_kernel(vscene, vspec, vcam, sync)
+    err_v, veach_rows = phase_veach_kernel(vscene, vspec, vcam)
     max_err = max(max_err, err_v)
-    launches += phase_veach_path(vscene, vspec, vcam, vcfg, sync)
+    n, per_frame = phase_veach_path(vscene, vspec, vcam, vcfg, sync)
+    launches += n
+    _attach_launches(veach_rows, per_frame)
     phase_veach_parity(vcfg)
-    log("[6 veach kernel] kernel vs plain ms: " + "; ".join(
-        f"{k:.3f} vs {p:.3f}" for k, p in veach_ms))
 
-    err_b, bdpt_ms = phase_bdpt_kernel(vscene, vspec, vcam, sync)
+    err_b, bdpt_rows = phase_bdpt_kernel(vscene, vspec, vcam)
     max_err = max(max_err, err_b)
-    launches += phase_bdpt_path(vscene, vspec, vcam, vcfg, sync)
+    n, per_frame = phase_bdpt_path(vscene, vspec, vcam, vcfg, sync)
+    launches += n
+    _attach_launches(bdpt_rows, per_frame)
     phase_bdpt_parity(vcfg)
-    log("[9 bdpt kernel] kernel vs plain ms: " + "; ".join(
-        f"{k:.3f} vs {p:.3f}" for k, p in bdpt_ms))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows))
     print(json.dumps({"kernels": [{
         "name": "cluster_trace",
         "route": "cuda",
@@ -585,8 +500,12 @@ def main():
         "replaces": "ti_raytrace_tpu/ops/cluster_trace.py:189",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "ms": rows[0]["ms"],
+        "plain_ms": rows[0]["plain_ms"],
+        "bound_ms": rows[0]["bound_ms"],
+        "bound_by": rows[0]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a closest hit over clusters
+        "wavefronts": [dict(path=p, **r) for p, rs in paths for r in rs],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -18,7 +18,10 @@ over triangle edge length, ~300 on this mesh), and XLA on the CPU
 contracts a*b+c into fused multiply-adds (jit(a*b+c) equals the exactly
 rounded fma on every element) where the port rounds every product.
 Measured: up to 3.6e-5 on these rays, while t agrees to 1e-6.
-The CUDA kernel is held against the plain version in test_torch_kernel.py.
+The CUDA kernel is held against the plain version in test_torch_kernel.py;
+here its supercluster table is held against the reference's `sb`, and
+the slab test's monotonicity, on which the kernel's supercluster skip
+rests, is checked on random boxes and rays.
 """
 
 import jax.numpy as jnp
@@ -280,3 +283,83 @@ def test_trace_tmax_active_matches_reference(request, scene, mode):
     if scene == "teapot" and mode != "capped":
         sphere = np.asarray(ref[1])[a] == ts.n_prims - 1
         assert sphere.sum() > 5 and hit[sphere].all()
+
+
+def test_super_table_matches_reference(scenes):
+    """scene.super_bounds (super_table, cluster order) read through an
+    order's supercluster sequence equals the reference's `sb` rows of
+    _point_order and _tile_order_from_cent (min, max, validity, zero)."""
+    js, ts, host = scenes
+    nc = host["cluster_bounds"].shape[1]
+    S = nc // tct.GROUP
+    table = ts.super_bounds.numpy()
+    assert table.shape == (8, S)
+    np.testing.assert_array_equal(table, tct.super_table(ts.cluster_bounds).numpy())
+    origin = np.array([1.5, 4.0, 30.0], np.float32)
+    order = tct._point_order(ts.cluster_bounds, nc, torch.from_numpy(origin)).numpy()
+    _, _, sb = jct._point_order(js.cluster_bounds, nc, jnp.asarray(origin))
+    np.testing.assert_array_equal(table[:, order[0, ::tct.GROUP] // tct.GROUP],
+                                  np.asarray(sb)[0, :, :S])
+    cent = np.random.default_rng(4).normal(size=(5, 3)).astype(np.float32) * 20
+    order = tct._tile_order_from_cent(torch.from_numpy(cent), ts.cluster_bounds, nc).numpy()
+    _, _, sb = jct._tile_order_from_cent(jnp.asarray(cent), js.cluster_bounds, nc)
+    for i in range(5):
+        np.testing.assert_array_equal(table[:, order[i, ::tct.GROUP] // tct.GROUP],
+                                      np.asarray(sb)[i, :, :S])
+
+
+def test_super_box_entry_is_monotonic():
+    """The kernel's supercluster skip is exact because the slab test is
+    monotonic in the box planes: on random cluster boxes grouped in runs of
+    32 (with padding boxes) and random rays (axis-parallel, parked at 1e9,
+    inside and outside), every ray that enters a valid cluster box before
+    its bound enters the run's super box (super_table) at an entry no
+    later and an exit no earlier."""
+    rng = np.random.default_rng(8)
+    nc, n = 256, 512
+    lo = rng.normal(size=(3, nc)).astype(np.float32) * 10
+    cb = np.zeros((8, nc), np.float32)
+    cb[0:3], cb[3:6], cb[6] = lo, lo + rng.random((3, nc)).astype(np.float32) * 8, 1.0
+    pad = rng.random(nc) < 0.1
+    cb[0:3, pad], cb[3:6, pad], cb[6, pad] = 1e30, -1e30, 0.0
+    cb = torch.from_numpy(cb)
+    sup = tct.super_table(cb)[:, torch.arange(nc) // tct.GROUP]  # each cluster's super
+    o = rng.normal(size=(3, n)).astype(np.float32) * 6
+    o[:, ::9] = 1e9
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d[rng.integers(0, 3, n // 4), np.arange(n // 4)] = 0.0  # axis-parallel rays
+    d /= np.linalg.norm(d, axis=0)
+    o, d = torch.from_numpy(o)[:, :, None], torch.from_numpy(d)[:, :, None]
+    inv = [tct._safe_inv(d[k]) for k in range(3)]
+    best = torch.from_numpy(rng.random((n, 1)).astype(np.float32) * 60)
+    tn, tf = tct.slab(cb[:, None, :], o[0], o[1], o[2], *inv)
+    sn, sf = tct.slab(sup[:, None, :], o[0], o[1], o[2], *inv)
+    cand = (torch.clamp(tn, min=0.0) <= tf) & (cb[6] > 0.0) & (tn < best)
+    s_cand = (torch.clamp(sn, min=0.0) <= sf) & (sup[6] > 0.0) & (sn < best)
+    assert int(cand.sum()) > 1000
+    assert bool(s_cand[cand].all())
+    assert bool((sn[cand] <= tn[cand]).all()) and bool((sf[cand] >= tf[cand]).all())
+
+
+@pytest.mark.parametrize("mode", ["shared_origin", "tile_order", "sorted", "tmax", "capped"])
+def test_kernel_inputs_pass_super_table(scenes, mode):
+    """kernel_inputs hands the kernel the scene's supercluster table in
+    every mode, beside bounds of the scene and an order of whole
+    superclusters."""
+    _, ts, host = scenes
+    o, d = _incoherent_rays(host, 600, 2)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    kw = {"shared_origin": dict(sort_rays=False, shared_origin=o[:, 0].clone()),
+          "tile_order": dict(sort_rays=False, tile_order=True),
+          "sorted": dict(sort_rays=True),
+          "tmax": dict(sort_rays=True, tmax=torch.full((600,), 5.0)),
+          "capped": dict(sort_rays=True, tmax=torch.full((600,), 5.0),
+                         active=torch.arange(600) % 3 > 0, cap=256)}[mode]
+    args, _ = tct.kernel_inputs(ts, o, d, **kw)
+    assert len(args) == 9 and args[8] is ts.super_bounds and args[3] is ts.cluster_bounds
+    order = args[4].long()
+    runs = order.reshape(order.shape[0], -1, tct.GROUP)
+    assert bool((runs - runs[..., :1] == torch.arange(tct.GROUP)).all())
+    assert bool((runs[..., 0] % tct.GROUP == 0).all())
+    assert args[6] == (mode == "shared_origin") and (args[7] is None) == (mode in (
+        "shared_origin", "tile_order", "sorted"))

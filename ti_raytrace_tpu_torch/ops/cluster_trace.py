@@ -15,7 +15,10 @@ its current best hit.  Orders:
 Candidacy is re-derived per cluster from each ray's current best hit, so
 there is no candidate-refresh period to clamp (the reference's REFRESH);
 ties resolve as in the reference: first cluster in order with the
-minimal t, then the lowest triangle slot.
+minimal t, then the lowest triangle slot.  Every order runs whole
+superclusters (GROUP consecutive clusters, `_expand_supers`), and the
+kernel skips a supercluster that no ray of a warp enters before its best
+hit, reading the scene's `super_table` (built once, scene/data.py).
 
 `cluster_trace` dispatches on the tensors' device: CPU tensors take
 `cluster_trace_plain`, CUDA tensors take the kernel in
@@ -43,6 +46,7 @@ BF16_SLAB, TILE_WIDE*, ...) are measured-loss or diagnostic paths of the
 TPU kernel and stay there.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -99,6 +103,19 @@ def _super_boxes(cb, n_clusters):
     bmin = cb[0:3, :n_clusters].T.reshape(S, GROUP, 3).amin(dim=1)
     bmax = cb[3:6, :n_clusters].T.reshape(S, GROUP, 3).amax(dim=1)
     return bmin, bmax
+
+
+def super_table(cb):
+    """Supercluster table (8, S) of the cluster bounds (8, C): for each run
+    of GROUP clusters, rows 0:3 the min of their box mins, 3:6 the max of
+    their box maxes, 6 the max of their validity flags, 7 zero — the
+    reference's `sb` in cluster order (it permutes it per order; the
+    kernel reads it through the order).  Built once per scene
+    (scene/data.py) for the kernel's supercluster skip."""
+    S = cb.shape[1] // GROUP
+    bmin, bmax = _super_boxes(cb, cb.shape[1])
+    valid = cb[6].reshape(S, GROUP).amax(dim=1)
+    return torch.cat([bmin.T, bmax.T, valid[None], torch.zeros_like(valid)[None]]).contiguous()
 
 
 def _expand_supers(order_s):
@@ -167,17 +184,48 @@ def _safe_inv(v):
                              torch.where(v >= 0, 1e-12, -1e-12), v)
 
 
-def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None):
+def slab(b, ox, oy, oz, ix, iy, iz):
+    """Entry and exit distances (tn, tf) of rays (origin, inverse
+    direction) through boxes b (rows 0:3 min, 3:6 max): the reference's
+    slab test, in its operation order.  A ray enters the box if
+    max(tn, 0) <= tf (and the box is valid)."""
+    t1x = (b[0] - ox) * ix
+    t2x = (b[3] - ox) * ix
+    tn = torch.minimum(t1x, t2x)
+    tf = torch.maximum(t1x, t2x)
+    t1y = (b[1] - oy) * iy
+    t2y = (b[4] - oy) * iy
+    tn = torch.maximum(tn, torch.minimum(t1y, t2y))
+    tf = torch.minimum(tf, torch.maximum(t1y, t2y))
+    t1z = (b[2] - oz) * iz
+    t2z = (b[5] - oz) * iz
+    tn = torch.maximum(tn, torch.minimum(t1z, t2z))
+    tf = torch.minimum(tf, torch.maximum(t1z, t2z))
+    return tn, tf
+
+
+def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None,
+                        supers=None, stats=None):
     """The kernel's computation in plain PyTorch, vectorised over
     (tiles, TILE rays, CLUSTER_B triangles) and looped over sweep
     positions k: tile i tests cluster order[i, k].  Same inputs and
     outputs as the kernel (see csrc/cluster_trace.cu; tmax (n_pad,) or
     None): returns t (n_pad,), prim int32 (n_pad,), u, v (n_pad,) and
-    visited int32 (n_tiles,)."""
+    visited int32 (n_tiles,).  `supers`, the kernel's supercluster table,
+    is read only for `stats`: this version tests every sweep position, and the
+    kernel's skip of whole superclusters changes no output.  stats: a
+    dict that gains, as device scalars for the kernel's work count,
+    "pairs", the candidate (ray, cluster) pairs at visit time, and
+    "super_entries", the (live ray, supercluster) pairs whose super box
+    the ray enters before its best hit at the supercluster's first sweep
+    position (read from `supers`, or built from `bounds` if None): the
+    only rays that need the 32 cluster-box tests of that supercluster."""
     n_pad = o.shape[1]
     T = n_pad // TILE
     nc = bounds.shape[1]
     dev = o.device
+    if stats is not None and supers is None:
+        supers = super_table(bounds)
 
     def lanes(x):
         return x.reshape(T, TILE, 1)
@@ -200,20 +248,16 @@ def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool,
 
     for k in range(nc):
         cid = order[:, k]
+        if stats is not None and k % GROUP == 0:
+            sb = supers[:, cid // GROUP].reshape(8, T, 1, 1)
+            tn, tf = slab(sb, ox, oy, oz, ix, iy, iz)
+            enter = live & (torch.clamp(tn, min=0.0) <= tf) & (sb[6] > 0.0) & (tn < best_t)
+            stats["super_entries"] = stats.get("super_entries", 0) + enter.sum()
         b = bounds[:, cid].reshape(8, T, 1, 1)
-        t1x = (b[0] - ox) * ix
-        t2x = (b[3] - ox) * ix
-        tn = torch.minimum(t1x, t2x)
-        tf = torch.maximum(t1x, t2x)
-        t1y = (b[1] - oy) * iy
-        t2y = (b[4] - oy) * iy
-        tn = torch.maximum(tn, torch.minimum(t1y, t2y))
-        tf = torch.minimum(tf, torch.maximum(t1y, t2y))
-        t1z = (b[2] - oz) * iz
-        t2z = (b[5] - oz) * iz
-        tn = torch.maximum(tn, torch.minimum(t1z, t2z))
-        tf = torch.minimum(tf, torch.maximum(t1z, t2z))
+        tn, tf = slab(b, ox, oy, oz, ix, iy, iz)
         cand = live & (torch.clamp(tn, min=0.0) <= tf) & (b[6] > 0.0) & (tn < best_t)
+        if stats is not None:
+            stats["pairs"] = stats.get("pairs", 0) + cand.sum()
         tile_any = cand.any(dim=1).reshape(T)
         if not bool(tile_any.any()):
             continue
@@ -263,12 +307,19 @@ def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool,
 
 class _ClusterTraceKernel:
     """ctypes binding of csrc/cluster_trace.cu.  `launches` counts kernel
-    launches (the wrapper adds one per launch and nowhere else)."""
+    launches and `launches_by_width` the same launches by live lanes
+    (n_valid); the wrapper adds to both per launch and nowhere else, and
+    `reset_counts` zeroes both."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_width = collections.Counter()
         self.build_info = None
         self._lib = None
+
+    def reset_counts(self):
+        self.launches = 0
+        self.launches_by_width.clear()
 
     def library(self):
         if self._lib is None:
@@ -276,7 +327,7 @@ class _ClusterTraceKernel:
 
             lib, self.build_info = cuda_build.load("cluster_trace.cu")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.cluster_trace_launch.argtypes = [p, p, p, i, i, p, i, p, i, p, i,
+            lib.cluster_trace_launch.argtypes = [p, p, p, i, i, p, p, i, p, i, p, i,
                                                  p, p, p, p, p, p]
             lib.cluster_trace_launch.restype = ctypes.c_int
             lib.cluster_trace_error_string.argtypes = [ctypes.c_int]
@@ -284,13 +335,17 @@ class _ClusterTraceKernel:
             self._lib = lib
         return self._lib
 
-    def __call__(self, o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None):
+    def __call__(self, o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None,
+                 supers=None):
         n_pad = o.shape[1]
         nc = bounds.shape[1]
         n_tiles = n_pad // TILE
         dev = o.device
+        if supers is None:
+            raise ValueError("cluster_trace: the kernel needs the supercluster table "
+                             "(super_table(bounds), scene.super_bounds)")
         operands = [("o", o, torch.float32), ("d", d, torch.float32),
-                    ("bounds", bounds, torch.float32),
+                    ("bounds", bounds, torch.float32), ("supers", supers, torch.float32),
                     ("order", order, torch.int32), ("tri", tri, torch.float32)]
         if tmax is not None:
             operands.append(("tmax", tmax, torch.float32))
@@ -299,13 +354,14 @@ class _ClusterTraceKernel:
                 raise ValueError(f"cluster_trace: {name} must be a contiguous {dt} "
                                  f"tensor on {dev}, got {x.dtype} on {x.device}")
         if (o.shape != (3, n_pad) or d.shape != (3, n_pad) or n_pad % TILE
-                or bounds.shape[0] != 8 or nc % GROUP
+                or bounds.shape[0] != 8 or nc % GROUP or supers.shape != (8, nc // GROUP)
                 or order.shape not in ((1, nc), (n_tiles, nc))
                 or tri.shape != (12, nc * CLUSTER_B) or not 0 <= n_valid <= n_pad
                 or (tmax is not None and tmax.shape != (n_pad,))):
             raise ValueError(
                 f"cluster_trace: bad shapes o {tuple(o.shape)} d {tuple(d.shape)} "
-                f"bounds {tuple(bounds.shape)} order {tuple(order.shape)} "
+                f"bounds {tuple(bounds.shape)} supers {tuple(supers.shape)} "
+                f"order {tuple(order.shape)} "
                 f"tri {tuple(tri.shape)} n_valid {n_valid} "
                 f"tmax {None if tmax is None else tuple(tmax.shape)}")
         t = torch.empty(n_pad, dtype=torch.float32, device=dev)
@@ -319,7 +375,7 @@ class _ClusterTraceKernel:
         with torch.cuda.device(dev):
             err = lib.cluster_trace_launch(
                 o.data_ptr(), d.data_ptr(), None if tmax is None else tmax.data_ptr(),
-                n_pad, n_valid, bounds.data_ptr(), nc,
+                n_pad, n_valid, bounds.data_ptr(), supers.data_ptr(), nc,
                 order.data_ptr(), int(order.shape[0] > 1), tri.data_ptr(),
                 int(origin_mt), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
                 v.data_ptr(), visited.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
@@ -328,17 +384,19 @@ class _ClusterTraceKernel:
             raise RuntimeError("cluster_trace kernel launch failed: "
                                + lib.cluster_trace_error_string(err).decode())
         self.launches += 1
+        self.launches_by_width[n_valid] += 1
         return t, prim, u, v, visited
 
 
 KERNEL = _ClusterTraceKernel()
 
 
-def cluster_trace(o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None):
+def cluster_trace(o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None,
+                  supers=None):
     """Closest hits of the padded planar wavefront (3, n_pad): the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if o.device.type == "cuda":
-        return KERNEL(o, d, n_valid, bounds, order, tri, origin_mt, tmax)
+        return KERNEL(o, d, n_valid, bounds, order, tri, origin_mt, tmax, supers)
     if o.device.type == "cpu":
         return cluster_trace_plain(o, d, n_valid, bounds, order, tri, origin_mt, tmax)
     raise NotImplementedError(f"cluster_trace: no implementation for {o.device}")
@@ -357,8 +415,9 @@ def capacity_lanes(N: int, cap_frac: float) -> int:
 def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: bool = False,
                   tmax=None, active=None, cap=None):
     """The kernel's operands for the planar wavefront o, d (3, N):
-    ((o, d, n_valid, bounds, order, tri, origin_mt, tmax), perm), padded
-    to whole tiles.  tmax (N,) is padded with zeros (unbounded), or None.
+    ((o, d, n_valid, bounds, order, tri, origin_mt, tmax, supers), perm),
+    padded to whole tiles; supers is the scene's supercluster table.
+    tmax (N,) is padded with zeros (unbounded), or None.
     sort_rays: the lanes go in coherence order and perm is that lane order
     (n_pad,), else None; lanes outside `active` then get a zero direction
     (they miss everything) and sort after the active ones, and with `cap`
@@ -392,7 +451,8 @@ def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: 
         order = _tile_order_from_cent(cent, cb, nc)
     else:
         order = _static_order(cb, nc)
-    return (o_p, d_p, min(N, n_run), cb, order, tri, origin_mt, tmax_p), perm
+    return (o_p, d_p, min(N, n_run), cb, order, tri, origin_mt, tmax_p,
+            scene.super_bounds), perm
 
 
 def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False,

@@ -40,7 +40,9 @@ def find_nvcc() -> str:
 
 class BuildInfo:
     """Where a library came from: path, whether this process compiled it,
-    the compile's wall time and nvcc's output."""
+    the compile's wall time and nvcc's output (kept beside the library as
+    <name>.log, so a reused library still reports its registers; empty if
+    that log is gone)."""
 
     def __init__(self, path: str, built: bool, seconds: float, log: str):
         self.path, self.built, self.seconds, self.log = path, built, seconds, log
@@ -52,8 +54,13 @@ def build(source: str) -> BuildInfo:
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{digest[:16]}.so")
+    log_path = out[:-3] + ".log"
     if os.path.exists(out):
-        return BuildInfo(out, False, 0.0, "")
+        log = ""
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = f.read()
+        return BuildInfo(out, False, 0.0, log)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
@@ -64,8 +71,11 @@ def build(source: str) -> BuildInfo:
         raise RuntimeError(
             f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stderr}{proc.stdout}"
         )
+    log = proc.stderr + proc.stdout
+    with open(log_path, "w") as f:  # written before the library appears
+        f.write(log)
     os.replace(tmp, out)  # atomic publish: a torn library is never loaded
-    return BuildInfo(out, True, seconds, proc.stderr + proc.stdout)
+    return BuildInfo(out, True, seconds, log)
 
 
 def load(source: str):

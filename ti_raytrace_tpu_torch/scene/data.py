@@ -6,8 +6,8 @@ the numpy host dict of either package's `SceneBuilder.build_host` (or an
 npz cache of one) and moves what the port reads onto `device`; other keys
 (the reference's `bvh_*`, `cluster_mt`, and `cluster_attr`, which the
 port's tracer replaces by a gather from `prim_attr`) stay on the host.
-The env map's 2x2-block bilinear texture is packed here once instead of
-per lookup.
+The env map's 2x2-block bilinear texture and the cluster tracer's
+supercluster table are built here once instead of per lookup or trace.
 """
 
 from dataclasses import dataclass
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ti_raytrace_tpu_torch.core import constants as C
+from ti_raytrace_tpu_torch.ops.cluster_trace import super_table
 from ti_raytrace_tpu_torch.texture.texture import pack_blocks
 
 
@@ -35,6 +36,7 @@ class SceneData:
     # --- cluster acceleration (accel/clusters.py)
     cluster_bounds: torch.Tensor  # (8, C) f32
     cluster_tri: torch.Tensor     # (12, C*B) f32
+    super_bounds: torch.Tensor    # (8, C/32) f32 ops/cluster_trace.super_table
     # --- global
     aabb_min: torch.Tensor      # (3,) f32
     aabb_max: torch.Tensor      # (3,) f32
@@ -64,6 +66,7 @@ def device_scene(host: dict, device="cpu") -> SceneData:
         if stype[sid] == C.SHAPE_SPHERE:  # other shapes never hit (reference tail)
             spheres.append((pid, sid))
     env = np.asarray(host["env_img"], np.float32)
+    cluster_bounds = arr("cluster_bounds")
     return SceneData(
         mat_type=arr("mat_type", torch.int32),
         shape_pos=arr("shape_pos"),
@@ -73,8 +76,9 @@ def device_scene(host: dict, device="cpu") -> SceneData:
         env_power=arr("env_power"),
         prim_attr=arr("prim_attr"),
         light_attr=arr("light_attr"),
-        cluster_bounds=arr("cluster_bounds"),
+        cluster_bounds=cluster_bounds,
         cluster_tri=arr("cluster_tri"),
+        super_bounds=super_table(cluster_bounds),
         aabb_min=arr("aabb_min"),
         aabb_max=arr("aabb_max"),
         n_prims=P,

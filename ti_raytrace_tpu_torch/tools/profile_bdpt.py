@@ -114,7 +114,7 @@ def device_profile(render, device, top: int = 8) -> dict:
     for evt in prof.key_averages():
         (kernels if evt.device_type == DeviceType.CUDA else ops).append(evt)
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    trace = [e for e in kernels if e.key.startswith("cluster_trace")]
+    trace = [e for e in kernels if "cluster_trace_kernel" in e.key]  # "void ...<256>(...)"
     ops = sorted((e for e in ops if dev_us(e) > 0), key=dev_us, reverse=True)[:top]
     return dict(
         profiled_wall_ms=wall_ms,

@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths — the 100k-triangle benchmark scene
-rendered by `integrators.pt_rgb.render_film_frames_merged` at 512x512,
-the Veach MIS scene rendered by `pt_rgb.render_film_frames` with NEE (the
-reference's veach_pt golden path), and the same scene under BDPT
-(`bdpt_rgb.render_frame_sliced` in 2 slices, the veach_bdpt golden path)
-— and holds the CUDA kernel against its plain PyTorch version in every
-mode the paths use.
+Drives the port's paths — the 100k-triangle benchmark scene rendered by
+`integrators.pt_rgb.render_film_frames_merged` at 512x512, the Veach MIS
+scene rendered by `pt_rgb.render_film_frames` with NEE (the reference's
+veach_pt golden path), the same scene under BDPT
+(`bdpt_rgb.render_frame_sliced` in 2 slices, the veach_bdpt golden path),
+and the four path-traced scenes of the dense tracer (single_model,
+cornell_box, sky_dome, spectral_box) — and holds the CUDA kernel against
+its plain PyTorch version in every mode the paths use, and the dense
+sweep, which is plain torch ops, against the cluster tracer.
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -46,7 +48,29 @@ Phases, each printing its own lines; any failure exits non-zero:
      finite non-negative HDR with mean > 0, kernel launches > 0,
      ms/frame; then one frame rendered twice from one key, bit-equal
      (the splat is a deterministic scatter-add);
- 11. the same 32^2 BDPT render on CUDA and on the CPU, as in phase 5.
+ 11. the same 32^2 BDPT render on CUDA and on the CPU, as in phase 5;
+ 12. single_model (2,281 prims: the dense tracer) at 512^2 in merged groups
+     of 16 with its schedule: a warm-up group, recorded at the dense
+     tracer, then DENSE_GROUPS timed groups; zero overflow kills, a finite
+     non-negative HDR with mean > 0, ms/frame, and no launch of the
+     cluster kernel (the dispatch took the dense tracer);
+ 13. dense vs cluster on the recorded camera wavefront (262,144 lanes) and
+     merged bounce-1 wavefront (1,048,576 lanes): `dense_trace.trace_shaded`
+     and, called directly, `trace_clustered` on the same scene's cluster
+     tables — misses equal, t within rtol 1e-5, every differing prim id a
+     t-tie, and those not between coincident copies of one triangle
+     (sphere.obj holds each triangle three times; the dense sweep reports
+     the lowest index, the cluster tracer the first in its sweep order) at
+     most 0.1% of hits, phase 3's bar; both times (CUDA events after a warm-up), the
+     cluster kernel's alone, and the sweep's arithmetic bound, lanes x
+     prims x 60 operations at 67 TFLOP/s;
+ 14. cornell_box at 512^2, `render_film_frames` with its schedule and NEE,
+     CORNELL_FRAMES frames; 15. sky_dome and 16. spectral_box at 512^2,
+     `render_film_frames_spec` with their schedules, SPEC_FRAMES frames
+     each: phase 12's checks (a spectral HDR may be negative in a channel:
+     XYZ -> sRGB of an out-of-gamut colour);
+ 17. the same 32^2 render on CUDA and on the CPU for each of the four
+     scenes, as in phase 5.
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
@@ -74,6 +98,10 @@ KERNEL_REPS = 10  # timed kernel launches per compared wavefront
 SMALL = 32       # phase 5 and 8 film size
 VEACH_FRAMES = 8
 BDPT_FRAMES = 4
+DENSE_GROUPS = 1  # timed single_model groups of 16 frames
+CORNELL_FRAMES = 8
+SPEC_FRAMES = 4
+DENSE_REPS = 3   # timed traces per tracer in phase 13
 PLAIN_TILES = 1024  # tiles per block of the plain version
 T_RTOL = 1e-5
 PRIM_TIE_FRAC = 1e-3
@@ -441,6 +469,112 @@ def phase_bdpt_parity(cfg):
     _small_parity("[11 bdpt parity]", render)
 
 
+def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, sdata=None):
+    """`frames` timed frames of one dense-tracer scene into `fl`, rendered
+    as the CLI renders it (`sdata`: the spectral tables of a pt_spec
+    scene), with the checks of the path phases.  The scene must not reach
+    the cluster kernel."""
+    import torch
+
+    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    from ti_raytrace_tpu_torch.tools.dense_sweep import render_frames
+
+    KERNEL.reset_counts()
+    t0 = time.perf_counter()
+    fl, kills = render_frames(scene, cfg, spec, cam, fl, frames, sdata)
+    sync()
+    seconds = time.perf_counter() - t0
+    kills += warm_kills
+    hdr = fl.hdr
+    # XYZ -> sRGB leaves out-of-gamut spectral colours negative in a channel
+    signed = cfg.integrator == "pt_spec"
+    ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
+              and (signed or bool((hdr >= 0).all())) and float(hdr.mean()) > 0.0)
+    log(f"{tag} {name} {SIZE}^2, {cfg.integrator}, {scene.n_prims} prims, schedule "
+        f"{cfg.compaction}, group {cfg.group}: {frames} frames in {seconds:.2f} s = "
+        f"{seconds / frames * 1e3:.3f} ms/frame; overflow kills {kills}; cluster kernel "
+        f"launches {KERNEL.launches}; frames {fl.frame}; hdr mean {float(hdr.mean()):.5f}")
+    if kills != 0:
+        fail(f"{kills} compaction overflow kills on the {name} path")
+    if not ok_img:
+        fail(f"the {name} HDR is not a finite (W, H, 3) image with mean > 0"
+             + ("" if signed else ", or has a negative value"))
+    if KERNEL.launches != 0:
+        fail(f"{name} ({scene.n_prims} prims) reached the cluster kernel")
+
+
+def phase_single_model(sync):
+    """Phase 12, then phase 13 on the wavefronts its warm-up group recorded."""
+    import torch
+
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.scenes import make_camera, single_model
+    from ti_raytrace_tpu_torch.tools.dense_sweep import compare, group_wavefronts
+
+    scene, cfg = single_model("cuda")
+    spec, cam = make_camera(scene, cfg, SIZE, SIZE)
+    fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
+    t0 = time.perf_counter()
+    waves, fl, warm_kills = group_wavefronts(scene, cfg, spec, cam, fl)
+    sync()
+    log(f"[12 single_model] warm-up group: {cfg.group} frames in "
+        f"{time.perf_counter() - t0:.2f} s, overflow kills {warm_kills}")
+    _dense_path("[12 single_model]", "single_model", scene, cfg, spec, cam, fl,
+                DENSE_GROUPS * cfg.group, sync, warm_kills)
+
+    if [w[1].shape[1] for w in waves] != [SIZE * SIZE, cfg.group * SIZE * SIZE // 4]:
+        fail(f"one single_model group traced the widths {[w[1].shape[1] for w in waves]}")
+    for name, o, d, origin in waves:
+        r = compare(scene, o, d, origin, DENSE_REPS)
+        log(f"[13 dense vs cluster] {name}: {r['lanes']} lanes x {r['prims']} prims, "
+            f"{r['hits']} hits; misses equal={r['misses_equal']}; max|dt| "
+            f"{r['max_abs_dt']:.3e} (rtol {T_RTOL} ok={r['t_ok']}); prim mismatch "
+            f"{r['prim_mismatch_frac']:.2e} of hits, {r['apart_mismatch_frac']:.2e} not "
+            f"between coincident copies (ties ok={r['ties_ok']})")
+        log(f"[13 dense vs cluster] {name}: dense sweep {r['dense_ms']:.3f} ms, cluster "
+            f"tracer {r['cluster_ms']:.3f} ms (its kernel alone "
+            f"{r['cluster_kernel_ms']:.4f} ms); sweep bound {r['bound_ms']:.4f} ms by "
+            f"operations; share {r['share']:.4f}")
+        if not (r["hits"] > 0 and r["misses_equal"] and r["t_ok"] and r["ties_ok"]
+                and r["apart_mismatch_frac"] <= PRIM_TIE_FRAC):
+            fail(f"the dense sweep disagrees with the cluster tracer on the {name} wavefront")
+    del waves
+    torch.cuda.empty_cache()
+
+
+def phase_dense_path(tag, name, frames, sync):
+    """Phases 14-16: a warm-up frame, then `frames` timed frames."""
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.run import spectral_data
+    from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
+    from ti_raytrace_tpu_torch.tools.dense_sweep import render_frames
+
+    scene, cfg = EXAMPLES[name]("cuda")
+    spec, cam = make_camera(scene, cfg, SIZE, SIZE)
+    fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
+    sdata = spectral_data(cfg, cfg.integrator, scene.device)
+    fl, warm_kills = render_frames(scene, cfg, spec, cam, fl, 1, sdata)
+    sync()
+    _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, sdata)
+
+
+def phase_dense_parity(name):
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.run import spectral_data
+    from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
+    from ti_raytrace_tpu_torch.tools.dense_sweep import render_frames
+
+    def render(dev):
+        scene, cfg = EXAMPLES[name](dev)
+        spec, cam = make_camera(scene, cfg, SMALL, SMALL)
+        fl, kills = render_frames(scene, cfg, spec, cam,
+                                  film_mod.new_film(SMALL, SMALL, seed=3, device=dev), 2,
+                                  spectral_data(cfg, cfg.integrator, dev))
+        return fl.hdr, kills
+
+    _small_parity(f"[17 {name} parity]", render)
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -490,6 +624,15 @@ def main():
     launches += n
     _attach_launches(bdpt_rows, per_frame)
     phase_bdpt_parity(vcfg)
+    del vscene
+    torch.cuda.empty_cache()
+
+    phase_single_model(sync)
+    phase_dense_path("[14 cornell_box]", "cornell_box", CORNELL_FRAMES, sync)
+    phase_dense_path("[15 sky_dome]", "sky_dome", SPEC_FRAMES, sync)
+    phase_dense_path("[16 spectral_box]", "spectral_box", SPEC_FRAMES, sync)
+    for name in ("single_model", "cornell_box", "sky_dome", "spectral_box"):
+        phase_dense_parity(name)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows))

@@ -207,18 +207,24 @@ def test_trace_sorted_mode_matches_reference(scenes, seed):
 ])
 def test_unported_modes_raise(scenes, kwargs):
     """The BDPT modes run on the cluster tracer (the tests below and
-    test_torch_bdpt.py); a scene of at most DENSE_MAX_PRIMS prims still
-    raises in every mode, naming the dense tracer's ROADMAP item."""
-    from types import SimpleNamespace
-
+    test_torch_bdpt.py), and a scene of at most DENSE_MAX_PRIMS prims
+    takes the dense tracer in every mode (test_torch_dense_trace.py).
+    What still raises, naming its ROADMAP item: the prism scene and the
+    spectral BDPT that renders it."""
+    from test_torch_dense_gpu import tie_rays, tie_scene
     from ti_raytrace_tpu_torch.accel import trace
+    from ti_raytrace_tpu_torch.examples import run
+    from ti_raytrace_tpu_torch.scene.data import device_scene
 
     _, ts, host = scenes
     o, d = _incoherent_rays(host, 40, 6)
     t, prim = trace(ts, torch.from_numpy(o), torch.from_numpy(d), **kwargs)
     assert t.shape == prim.shape == (40,)
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': the dense tracer"):
-        trace(SimpleNamespace(n_prims=36), torch.from_numpy(o), torch.from_numpy(d), **kwargs)
+    so, sd = tie_rays(40)
+    t, prim = trace(device_scene(tie_scene((5, 77)), "cpu"), so, sd, **kwargs)
+    assert (prim == 5).all() and (t == 3.0).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
+        run.main(["prism_rainbow", "--size", "8", "--device", "cpu"])
 
 
 def _bounded_rays(scene, host, ts, n, seed):

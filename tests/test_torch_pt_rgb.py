@@ -178,13 +178,12 @@ def test_overflow_kills_are_counted(scenes):
 
 def test_unported_paths_raise(scenes):
     """What is still outside the port raises, naming its ROADMAP item:
-    the dense tracer, compaction calibration, the spectral integrators
-    and the golden targets and CLI scenes of unported slices.  The BDPT
-    tracer modes and the corrected estimator now run."""
-    from types import SimpleNamespace
-
+    the prism scene as a CLI scene and as a golden target, the spectral
+    BDPT that renders it, and the CLI's live preview.  The BDPT tracer
+    modes, the corrected estimator, compaction calibration, the dense
+    tracer and the spectral path tracer now run."""
     from ti_raytrace_tpu_torch import film as tfilm
-    from ti_raytrace_tpu_torch.accel import trace, trace_shaded
+    from ti_raytrace_tpu_torch.accel import trace
     from ti_raytrace_tpu_torch.examples import run
     from ti_raytrace_tpu_torch.tools import golden
 
@@ -198,16 +197,17 @@ def test_unported_paths_raise(scenes):
     assert t.shape == (40,)
     img = tpt.render_frame(ts, spec, cam, 1, fl.key, corrected=True, max_depth=2)
     assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': the dense tracer"):
-        run.main(["cornell_box", "--size", "8", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral PT"):
-        golden.main(["--scene", "sky_dome", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpt.calibrate_compaction(ts, spec, cam)
-    with pytest.raises(NotImplementedError, match="dense tracer"):
-        trace_shaded(SimpleNamespace(n_prims=36), torch.zeros(3, 4), torch.ones(3, 4))
-    with pytest.raises(NotImplementedError, match="dense tracer"):
-        trace(SimpleNamespace(n_prims=36), torch.zeros(3, 4), torch.ones(3, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
+        run.main(["prism_rainbow", "--size", "8", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
+        golden.main(["--scene", "prism_rainbow", "--device", "cpu"])
+    sched = tpt.calibrate_compaction(ts, spec, cam, probe_size=16, max_depth=3)
+    assert sched is None or all(dv >= 2 for _, dv in sched)
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
+        run.main(["cornell_box", "--integrator", "bdpt_spec", "--size", "8",
+                  "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': auxiliary modules"):
+        run.main(["benchmark_100k", "--preview", "--size", "8", "--device", "cpu"])
     with pytest.raises(ValueError, match="compaction schedule"):
         tpt.render_film_frames_merged(ts, spec, cam, fl, 1, 1, None)
     assert not tpt.has_nee_materials(ts)

@@ -1,22 +1,15 @@
 """Tracer dispatch (twin of ti_raytrace_tpu/accel/__init__.py).
 
-Scenes above DENSE_MAX_PRIMS primitives use the cluster tracer
-(ops/cluster_trace.py), whose kernel runs on CUDA tensors and whose plain
-PyTorch version runs on CPU tensors.  The dense tracer for smaller scenes
-is not ported yet.  `trace` returns (t, prim); `trace_shaded` adds the
-barycentrics and the packed shading attributes.  Planar convention: rays
-are (3, N).
+Two tracers share one contract, and the scene's primitive count picks
+one: scenes of at most DENSE_MAX_PRIMS primitives take the dense planar
+sweep (ops/dense_trace.py, plain torch ops), larger ones the cluster
+tracer (ops/cluster_trace.py), whose kernel runs on CUDA tensors and
+whose plain PyTorch version runs on CPU tensors.  `trace` returns
+(t, prim); `trace_shaded` adds the barycentrics and the packed shading
+attributes.  Planar convention: rays are (3, N).
 """
 
 DENSE_MAX_PRIMS = 4096
-
-
-def _check_cluster_scene(scene):
-    if scene.n_prims <= DENSE_MAX_PRIMS:
-        raise NotImplementedError(
-            "the dense tracer (scenes of at most 4096 prims) is outside the "
-            "ported slice (ROADMAP 'to port': the dense tracer + the "
-            "cornell/single_model slice)")
 
 
 def trace(scene, origin, direction, sort_rays: bool = True, sort_small: bool = False,
@@ -28,12 +21,20 @@ def trace(scene, origin, direction, sort_rays: bool = True, sort_small: bool = F
     than the tracer's SMALL_WAVEFRONT (NEE shadow rays of compacted
     phases).
 
-    tmax: optional (N,) shadow-ray distance bound: hits at t >= tmax come
-    back as misses (exact for `prim == target` / within-bound
-    predicates).  active + cap_frac: occupancy packing of the sorted
-    mode; inactive lanes' results are undefined, so callers read only the
-    lanes they marked active (trace_clustered has the contract)."""
-    _check_cluster_scene(scene)
+    tmax: optional (N,) shadow-ray distance bound: the cluster tracer
+    reports hits at t >= tmax as misses; the dense tracer ignores it and
+    returns the true closest hit.  Exact under both for `prim == target`
+    / within-bound predicates.  active + cap_frac: occupancy packing (the
+    cluster tracer's sorted mode, the dense tracer's capped sweep);
+    inactive lanes' results are undefined across the tracers (misses
+    under the cluster tracer, real hits or misses under the dense one),
+    so callers read only the lanes they marked active."""
+    if scene.n_prims <= DENSE_MAX_PRIMS:
+        from ti_raytrace_tpu_torch.ops.dense_trace import trace_planar, trace_planar_capped
+
+        if active is not None and cap_frac is not None:
+            return trace_planar_capped(scene, origin, direction, active, cap_frac)
+        return trace_planar(scene, origin, direction)
     from ti_raytrace_tpu_torch.ops.cluster_trace import trace_clustered
 
     t, prim, _ = trace_clustered(scene, origin, direction, sort_rays=sort_rays,
@@ -49,8 +50,12 @@ def trace_shaded(scene, origin, direction, sort_rays: bool = True, sort_small: b
     shared_origin: (3,) common ray origin (pinhole camera wavefronts) —
     one shared front-to-back cluster order and the shared-origin narrow
     phase.  tile_order: per-tile front-to-back order for a presorted
-    wavefront (sort_rays=False).  active + cap_frac: as in `trace`."""
-    _check_cluster_scene(scene)
+    wavefront (sort_rays=False).  active + cap_frac: as in `trace`, for
+    the cluster tracer only.  The dense tracer takes none of these."""
+    if scene.n_prims <= DENSE_MAX_PRIMS:
+        from ti_raytrace_tpu_torch.ops.dense_trace import trace_shaded as dense_shaded
+
+        return dense_shaded(scene, origin, direction)
     from ti_raytrace_tpu_torch.ops.cluster_trace import trace_clustered
 
     return trace_clustered(scene, origin, direction, sort_rays=sort_rays, want_attr=True,

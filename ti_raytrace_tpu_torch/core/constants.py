@@ -1,5 +1,5 @@
 """Global constants and enum codes (twin of ti_raytrace_tpu/core/constants.py,
-the subset the ported slice uses).  The numeric codes match the reference
+the subset the port uses).  The numeric codes match the reference
 so host dicts and npz caches are interchangeable between the packages."""
 
 import numpy as np
@@ -27,3 +27,18 @@ SHAPE_LASER = 4
 PRIM_NONE = 0
 PRIM_TRI = 1
 PRIM_SHAPE = 2
+
+# --- XYZ -> linear sRGB (the reference's matrix, rows r, g, b) -----------
+XYZ_TO_SRGB = np.array(
+    [
+        [3.240479, -1.537150, -0.498535],
+        [-0.969256, 1.875991, 0.041556],
+        [0.055648, -0.204043, 1.057311],
+    ],
+    dtype=np.float32,
+)
+
+# --- spectral sampling ---------------------------------------------------
+LAMBDA_MIN = 360.0
+LAMBDA_MAX = 760.0
+N_HERO = 4  # correlated hero wavelengths per spectral path

@@ -6,22 +6,32 @@
         --size 512 --frames 32 --device cuda --out /tmp/veach-bdpt.png
     python -m ti_raytrace_tpu_torch.examples.run veach_bdpt --integrator pt_rgb \
         --size 512 --frames 64 --device cuda --out /tmp/veach.png
+    python -m ti_raytrace_tpu_torch.examples.run spectral_box \
+        --size 512 --frames 64 --device cuda --checkpoint /tmp/box.npz
 
-Progressive rendering, 1 spp per frame, with the scene's own integrator
-unless --integrator overrides it.  The path tracer (`pt_rgb`): scenes
-with a merged group and a compaction schedule (the benchmark) render in
-merged groups; the others render `batch` frames per call of
-`render_film_frames` (the scene's batch, or 8), on the exact path when
-they have no schedule; NEE is on when the scene has a material that
-takes it (`has_nee_materials`).  BDPT (`bdpt_rgb`): every frame is
-`render_frame_sliced` in 2 slices with the scene's walk compaction and
-shadow cap, accumulated into the film, `batch` frames per call (the
-scene's batch, or 4).  The first call is a warm-up (it includes the
-kernel build on a fresh checkout); ms/frame is timed over the remaining
-calls, each ending in a device synchronize.  Prints one JSON line with
-ms/frame and the overflow count (compaction kills for PT, the walk
-compaction overflow plus capped shadow lanes for BDPT; non-zero means
-live paths were cut: a bias).
+Scenes: cornell_box, single_model, sky_dome, spectral_box, veach_bdpt,
+benchmark_100k.  Progressive rendering, 1 spp per frame, with the scene's
+own integrator unless --integrator overrides it.  The path tracer
+(`pt_rgb`): scenes with a merged group and a compaction schedule (the
+benchmark, single_model) render in merged groups; the others render
+`batch` frames per call of `render_film_frames` (the scene's batch, or
+8), on the exact path when they have no schedule; NEE is on when the
+scene has a material that takes it (`has_nee_materials`).  The spectral
+path tracer (`pt_spec`): `batch` frames per call of
+`render_film_frames_spec` with the scene's sky and emitter scale.  BDPT
+(`bdpt_rgb`): every frame is `render_frame_sliced` in 2 slices with the
+scene's walk compaction and shadow cap, accumulated into the film,
+`batch` frames per call (the scene's batch, or 4).  `debug`: the albedo
+AOV, one frame per call.  A call never crosses a multiple of
+--snapshot-every frames: there the PNG is written, and with --checkpoint
+the film too (an existing checkpoint is resumed: same frame count, same
+key chain).  A merged call that would be no whole number of groups (a
+tail, a snapshot boundary) takes the plain batched path.  The first call
+is a warm-up (it includes the kernel build on a fresh checkout); ms/frame
+is timed over the remaining calls, each ending in a device synchronize.
+Prints one JSON line with ms/frame and the overflow count (compaction
+kills for the path tracers, the walk compaction overflow plus capped
+shadow lanes for BDPT; non-zero means live paths were cut: a bias).
 """
 
 import argparse
@@ -32,7 +42,45 @@ import torch
 
 from ti_raytrace_tpu_torch import film as film_mod
 from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
-from ti_raytrace_tpu_torch.integrators import bdpt_rgb, pt_rgb
+from ti_raytrace_tpu_torch.integrators import bdpt_rgb, debug, pt_rgb, pt_spec
+
+INTEGRATORS = ("pt_rgb", "pt_spec", "bdpt_rgb", "debug")
+
+
+def spectral_data(cfg, integrator: str, device):
+    """The scene config's SpectralData on `device` for the spectral path
+    tracer, None for any other integrator."""
+    if integrator != "pt_spec":
+        return None
+    return pt_spec.make_spectral_data(**cfg.sky, device=device)
+
+
+def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int = 0,
+                 sdata=None):
+    """n frames into the film by `integrator` with the scene config's
+    schedule: BDPT in 2 slices with the config's walk compaction and
+    shadow cap; the spectral path tracer with `sdata`; the albedo AOV for
+    `debug`; pt_rgb (NEE by `has_nee_materials`) in merged groups of
+    `group` where the scene has a schedule, group > 1 and n is a whole
+    number of groups, else frame after frame.  Returns (film', overflow)."""
+    if integrator == "bdpt_rgb":
+        return bdpt_rgb.render_film_frames(
+            scene, spec, cam, fl, n_frames=n, n_slices=2,
+            walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
+    if integrator == "pt_spec":
+        return pt_spec.render_film_frames_spec(scene, sdata, spec, cam, fl, n_frames=n,
+                                               compaction=cfg.compaction)
+    if integrator == "debug":
+        for _ in range(n):
+            fl = film_mod.accumulate(fl, debug.render_frame(scene, spec, cam, fl.frame, fl.key))
+        return fl, 0
+    nee = pt_rgb.has_nee_materials(scene)
+    if cfg.compaction and group > 1 and n % group == 0:
+        return pt_rgb.render_film_frames_merged(
+            scene, spec, cam, fl, n_frames=n, group=group, compaction=cfg.compaction,
+            nee=nee, pay_divisors=cfg.pay_divisors)
+    return pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=n,
+                                     compaction=cfg.compaction, nee=nee)
 
 
 def _sync(device):
@@ -52,52 +100,66 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="out.png")
+    ap.add_argument("--snapshot-every", type=int, default=64,
+                    help="write the PNG (and the checkpoint) every so many frames")
+    ap.add_argument("--checkpoint", default=None, help="save/resume .npz path")
+    ap.add_argument("--preview", action="store_true", help="live window (not ported)")
     args = ap.parse_args(argv)
+    if args.snapshot_every < 1:
+        raise ValueError(f"--snapshot-every {args.snapshot_every} is not a positive count")
+    if args.preview:
+        raise NotImplementedError("--preview is outside the ported slice (ROADMAP 'to "
+                                  "port': auxiliary modules, examples/preview.py)")
     if args.example not in EXAMPLES:
         raise NotImplementedError(
             f"scene {args.example!r} is outside the ported slice (ported: "
-            f"{sorted(EXAMPLES)}; ROADMAP 'to port': the dense tracer + "
-            f"cornell/single_model slice and the scenes after it)")
+            f"{sorted(EXAMPLES)}; ROADMAP 'to port': spectral BDPT and prism)")
 
     device = torch.device(args.device)
     scene, cfg = EXAMPLES[args.example](device)
     integrator = args.integrator or cfg.integrator
-    if integrator not in ("pt_rgb", "bdpt_rgb"):
+    if integrator not in INTEGRATORS:
         raise NotImplementedError(
             f"integrator {integrator!r} is outside the ported slice (ported: "
-            f"pt_rgb, bdpt_rgb; ROADMAP 'to port': the spectral items)")
+            f"{', '.join(INTEGRATORS)}; ROADMAP 'to port': spectral BDPT and prism)")
     spec, cam = make_camera(scene, cfg, args.size, args.size)
-    bdpt = integrator == "bdpt_rgb"
-    nee = None if bdpt else pt_rgb.has_nee_materials(scene)
+    pt = integrator == "pt_rgb"
+    nee = pt_rgb.has_nee_materials(scene) if pt else None
     group = args.group or cfg.group or 0
-    merged = not bdpt and bool(cfg.compaction) and group > 1
-    batch = group if merged else (cfg.batch or (4 if bdpt else 8))
-    if merged and args.frames % group:
-        raise ValueError(f"--frames {args.frames} is not a multiple of --group {group}")
+    merged = pt and bool(cfg.compaction) and group > 1
+    if merged:
+        batch = group
+    else:
+        batch = {"bdpt_rgb": cfg.batch or 4, "debug": 1}.get(integrator, cfg.batch or 8)
+    sdata = spectral_data(cfg, integrator, device)
 
     fl = film_mod.new_film(args.size, args.size, seed=args.seed, device=device)
+    if args.checkpoint:
+        try:
+            fl = film_mod.load_checkpoint(args.checkpoint, device=device)
+            print(f"resumed at frame {fl.frame}", flush=True)
+        except FileNotFoundError:
+            pass
     kills, times, counts = 0, [], []
     while fl.frame < args.frames:
-        n = min(batch, args.frames - fl.frame)
+        until_snap = args.snapshot_every - fl.frame % args.snapshot_every
+        n = min(batch, args.frames - fl.frame, until_snap)
         t0 = time.perf_counter()
-        if bdpt:
-            fl, ov = bdpt_rgb.render_film_frames(
-                scene, spec, cam, fl, n_frames=n, n_slices=2,
-                walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
-        elif merged:
-            fl, ov = pt_rgb.render_film_frames_merged(
-                scene, spec, cam, fl, n_frames=n, group=group, compaction=cfg.compaction,
-                nee=nee, pay_divisors=cfg.pay_divisors)
-        else:
-            fl, ov = pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=n,
-                                               compaction=cfg.compaction, nee=nee)
+        fl, ov = render_batch(scene, cfg, spec, cam, fl, n, integrator, group, sdata)
         _sync(device)
         times.append(time.perf_counter() - t0)
         counts.append(n)
         kills += ov
         print(f"frame {fl.frame}/{args.frames}  {times[-1] / n * 1e3:.3f} ms/frame"
-              f"  {'walk overflow' if bdpt else 'overflow kills'} {ov}", flush=True)
-    film_mod.save_png(fl, args.out, exposure=cfg.exposure)
+              f"  {'walk overflow' if integrator == 'bdpt_rgb' else 'overflow kills'} {ov}",
+              flush=True)
+        if fl.frame % args.snapshot_every == 0 or fl.frame == args.frames:
+            film_mod.save_png(fl, args.out, exposure=cfg.exposure)
+            if args.checkpoint:
+                film_mod.save_checkpoint(fl, args.checkpoint)
+    if not times:  # a checkpoint at or past --frames: nothing left to render
+        film_mod.save_png(fl, args.out, exposure=cfg.exposure)
+        times, counts = [0.0], [1]
     timed = slice(1, None) if len(times) > 1 else slice(None)
     print(json.dumps(dict(
         scene=args.example, integrator=integrator, nee=nee, size=args.size,

@@ -1,10 +1,15 @@
 """Scene configs (twin of ti_raytrace_tpu/examples/scenes.py): the
-100k-triangle benchmark and the Veach MIS scene; the other reference
-scenes are ROADMAP 'to port' items.  Each function returns (SceneData on
-`device`, ExampleConfig)."""
+100k-triangle benchmark, the Veach MIS scene and the four path-traced
+scenes of the dense tracer (cornell_box, single_model, sky_dome,
+spectral_box); prism_rainbow is a ROADMAP 'to port' item.  Each `*_host`
+function builds the scene's host dict; each scene function returns
+(SceneData on `device`, ExampleConfig).  The schedules, groups and
+batches are the reference's, sized there for zero overflow kills (the
+occupancy they rest on belongs to the scene and the random stream); the
+port reports its own kill count."""
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -25,6 +30,7 @@ class ExampleConfig:
     integrator: str = "pt_rgb"  # the scene's own integrator (CLI --integrator overrides)
     scale_mult: float = 0.8     # camera distance = diag * scale_mult
     exposure: float = 0.5
+    sky: dict = field(default_factory=dict)  # pt_spec.make_spectral_data parameters
     compaction: tuple | None = None  # wavefront compaction schedule
     group: int | None = None    # merged-group size of the production path
     pay_divisors: tuple | None = None  # fused flush+compact tail capacities
@@ -49,6 +55,11 @@ BENCH_GROUP = 16
 """Frames per merged group on the bench path."""
 
 
+def _add_sphere_light(b: SceneBuilder, emission=50.0):
+    b.add_shape(sphere_shape([0.0, 20.0, 0.0], 5.0),
+                MaterialRec(C.MAT_LIGHT, color=[emission] * 3))
+
+
 def benchmark_100k_host(n_target: int = 100_000) -> dict:
     """Host dict of the benchmark: a Teapot densified to >= n_target
     triangles, all glass (ior 1.3, extinction 5), a sphere light and the
@@ -63,8 +74,7 @@ def benchmark_100k_host(n_target: int = 100_000) -> dict:
     b = SceneBuilder()
     b.add_triangles(pos, nrm, uv,
                     MaterialRec(C.MAT_GLASS, color=(0.8, 0.8, 0.8), p0=1.3, p1=5.0))
-    b.add_shape(sphere_shape([0.0, 20.0, 0.0], 5.0),
-                MaterialRec(C.MAT_LIGHT, color=[50.0] * 3))
+    _add_sphere_light(b)
     b.add_env(asset_path("image/env.png"), 5.0)
     return b.build_host()
 
@@ -114,7 +124,102 @@ def veach_bdpt(device="cpu"):
         "veach_bdpt", "bdpt_rgb", scale_mult=0.5)
 
 
-EXAMPLES = {"benchmark_100k": benchmark_100k, "veach_bdpt": veach_bdpt}
+def cornell_box_host() -> dict:
+    """Host dict of the classic box (cornell_box.obj, 36 triangles)."""
+    b = SceneBuilder()
+    b.add_obj(asset_path("model/cornell_box.obj"))
+    return b.build_host()
+
+
+def cornell_box(device="cpu"):
+    """pt_rgb with NEE on the classic box, four compaction phases, 32
+    frames per dispatch."""
+    from ti_raytrace_tpu_torch.scene.data import device_scene
+
+    return device_scene(cornell_box_host(), device), ExampleConfig(
+        "cornell_box", "pt_rgb", scale_mult=0.8,
+        compaction=((3, 2), (5, 4), (8, 8), (11, 16)), batch=32)
+
+
+def single_model_host() -> dict:
+    """Host dict of the glass sphere (sphere.obj, smooth normals, ior 1.3,
+    extinction 5) under a sphere light and the env map at power 5."""
+    b = SceneBuilder()
+    b.add_obj(asset_path("model/sphere.obj"))
+    b.materials[0] = MaterialRec(C.MAT_GLASS, color=b.materials[0].color, p0=1.3, p1=5.0)
+    _add_sphere_light(b)
+    b.add_env(asset_path("image/env.png"), 5.0)
+    return b.build_host(smooth_normals=True)
+
+
+def single_model(device="cpu"):
+    """pt_rgb on the glass sphere in merged groups of 16: N/4 lanes after
+    bounce 1 (about 22% of the camera rays hit the sphere), N/128 after
+    bounce 3."""
+    from ti_raytrace_tpu_torch.scene.data import device_scene
+
+    return device_scene(single_model_host(), device), ExampleConfig(
+        "single_model", "pt_rgb", scale_mult=0.8,
+        compaction=((1, 4), (3, 128)), group=16, batch=64)
+
+
+def sky_dome_host() -> dict:
+    """Host dict of the mirror sphere (sphere.obj, metallic 1, roughness
+    0) under a sphere light, with the spectral pack rows."""
+    b = SceneBuilder()
+    b.add_obj(asset_path("model/sphere.obj"))
+    b.materials[0].p0 = 1.0  # metallic
+    b.materials[0].p1 = 0.0  # roughness
+    _add_sphere_light(b)
+    return b.build_host(smooth_normals=True, spectral=True)
+
+
+def sky_dome(device="cpu"):
+    """pt_spec: the mirror sphere under the Hosek-Wilkie sky (turbidity 3,
+    albedo 0.5, elevation 0.17, the reference integrator's sky).  A
+    depth-2 scene: about 4.6% of the camera rays hit the sphere and their
+    reflections leave into the sky, so one phase of N/16 lanes after
+    bounce 1."""
+    from ti_raytrace_tpu_torch.scene.data import device_scene
+
+    return device_scene(sky_dome_host(), device), ExampleConfig(
+        "sky_dome", "pt_spec", scale_mult=2.0,
+        sky=dict(turbidity=3.0, albedo=0.5, elevation=0.17),
+        compaction=((1, 16),), batch=64)
+
+
+def spectral_box_host() -> dict:
+    """Host dict of the hero-wavelength cornell box: the first three
+    materials become measured-SPD reflectors (0 white, 1 red, 2 green)."""
+    b = SceneBuilder()
+    b.add_obj(asset_path("model/cornell_box.obj"))
+    for i in range(3):
+        b.materials[i].type = C.MAT_SPECTRAL
+        b.materials[i].tex = i
+    return b.build_host(smooth_normals=True, spectral=True)
+
+
+def spectral_box(device="cpu"):
+    """pt_spec on the spectral cornell box.  emitter_scale sqrt(3): the
+    scene's golden embodies a lamp scale of |Ke|_1 = 30, not the |Ke|_2 =
+    17.32 of the emission formula (PARITY.md 'spectral emitter scale')."""
+    from ti_raytrace_tpu_torch.scene.data import device_scene
+
+    return device_scene(spectral_box_host(), device), ExampleConfig(
+        "spectral_box", "pt_spec", scale_mult=0.8,
+        sky=dict(turbidity=3.0, albedo=0.5, elevation=0.17,
+                 emitter_scale=float(np.sqrt(3.0))),
+        compaction=((3, 2), (6, 4), (8, 8)))
+
+
+EXAMPLES = {
+    "cornell_box": cornell_box,
+    "single_model": single_model,
+    "sky_dome": sky_dome,
+    "spectral_box": spectral_box,
+    "veach_bdpt": veach_bdpt,
+    "benchmark_100k": benchmark_100k,
+}
 
 
 def framing_params(scene, cfg: ExampleConfig):

@@ -30,8 +30,7 @@ nee=False (the benchmark's glass scene needs no NEE); callers choose NEE
 with `has_nee_materials`, as the CLI does.  `corrected=True` (on
 `trace_paths` and `render_frame`) divides BSDF-sampled bounces by the
 sampler's true density, the ground truth of the corrected BDPT.  Not
-ported: `calibrate_compaction` (ROADMAP 'to port': CLI, goldens and
-debug); the reference's measured-loss switches (PRESORT_CARRY,
+ported: the reference's measured-loss switches (PRESORT_CARRY,
 PRESORT_HALF, TRACE0_COMPACT, NEE_FROM_EMITTER_PARITY).
 """
 
@@ -40,8 +39,8 @@ import torch
 from ti_raytrace_tpu_torch import film as film_mod
 from ti_raytrace_tpu_torch.accel import needs_presort, trace, trace_shaded
 from ti_raytrace_tpu_torch.bsdf.planar import disney_evaluate_pdf, disney_sample, glass_sample
-from ti_raytrace_tpu_torch.camera import (CameraSpec, morton_pixel_order,
-                                          ray_directions_morton)
+from ti_raytrace_tpu_torch.camera import (CameraSpec, morton_pixel_order, ray_directions,
+                                          ray_directions_morton, ray_origins)
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.ops import planar as pv
@@ -336,12 +335,43 @@ def has_nee_materials(scene) -> bool:
     return bool(((mt != C.MAT_GLASS) & (mt != C.MAT_LIGHT)).any())
 
 
-def calibrate_compaction(*args, **kwargs):
-    """Not ported: the probe-frame derivation of a compaction schedule
-    (every ported scene ships a measured schedule or none)."""
-    raise NotImplementedError(
-        "calibrate_compaction is outside the ported slice (ROADMAP 'to "
-        "port': CLI, goldens and debug for the PT scenes)")
+def calibrate_compaction(scene, spec, cam, key=None, probe_size: int = 128,
+                         margin: float = 4.0, max_depth: int = MAX_DEPTH):
+    """Derive a safe compaction schedule from one probe frame.
+
+    Traces a small probe wavefront (raster lane order, frame 1's jitter)
+    bounce by bounce, records the live-lane fraction after each bounce,
+    and returns a ((start_bounce, divisor), ...) schedule whose widths
+    keep `margin` times headroom over the measured occupancy: at each
+    bounce the largest power-of-two divisor (at most 64) that does, a new
+    phase wherever it at least doubles.  Returns None when the scene
+    keeps high occupancy (a closed diffuse box): compaction would not pay
+    there."""
+    key = key if key is not None else rng.PRNGKey(0)
+    pspec = CameraSpec(probe_size, probe_size, focal=spec.focal)
+    k_cam, k_path = rng.split(key)
+    o = ray_origins(pspec, cam).T.contiguous()
+    d = ray_directions(pspec, cam, 1, k_cam).T.contiguous()
+    nee = has_nee_materials(scene)
+    presort = needs_presort(scene)
+    carry = _new_carry(o, d)
+    frac = []
+    for depth in range(max_depth):
+        carry = _bounce(scene, carry, rng.fold_in(k_path, depth), nee, presort=presort)
+        frac.append(float(carry["alive"].float().mean()))
+        if frac[-1] == 0.0:
+            break
+
+    schedule = []
+    div_prev = 1
+    for depth, f in enumerate(frac):
+        div = 1
+        while div < 64 and f * margin <= 1.0 / (2 * div):
+            div *= 2
+        if div >= 2 * div_prev:
+            schedule.append((depth + 1, div))
+            div_prev = div
+    return tuple(schedule) if schedule else None
 
 
 def _while_bounces(scene, carry, key, depth0: int, b1: int, nee: bool = False,

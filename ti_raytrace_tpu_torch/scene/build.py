@@ -1,6 +1,6 @@
 """Host-side scene assembly: triangle soup + analytic shapes -> host dict
-(numpy; twin of ti_raytrace_tpu/scene/build.py without the BVH and the
-spectral tables; smooth normals included).
+(numpy; twin of ti_raytrace_tpu/scene/build.py without the BVH; smooth
+normals and the spectral pack rows included).
 
 `SceneBuilder.build_host` returns the same array dict as the reference's,
 byte for byte, minus the keys only the reference reads: the threaded BVH
@@ -107,11 +107,8 @@ class SceneBuilder:
                 np.zeros((0, 3, 2), np.float32), np.zeros((0,), np.int32))
 
     def build_host(self, smooth_normals: bool = False, spectral: bool = False) -> dict:
-        """Assemble the host-array dict that device_scene consumes."""
-        if spectral:
-            raise NotImplementedError(
-                "spectral packs are outside the ported slice (ROADMAP "
-                "'to port': spectral PT)")
+        """Assemble the host-array dict that device_scene consumes.
+        spectral: fill the packs' rgb2spec rows (scene/packs.py)."""
         pos, nrm, uv, tri_mat = self._concat_tris()
         T = pos.shape[0]
         P = T + len(self._shape_prims)
@@ -215,8 +212,8 @@ class SceneBuilder:
         from ti_raytrace_tpu_torch.accel.clusters import build_clusters
         from ti_raytrace_tpu_torch.scene.packs import build_light_attr, build_prim_attr
 
-        host["prim_attr"] = build_prim_attr(host)
-        host["light_attr"] = build_light_attr(host)
+        host["prim_attr"] = build_prim_attr(host, spectral=spectral)
+        host["light_attr"] = build_light_attr(host, spectral=spectral)
         host.update(build_clusters(host))
         return host
 

@@ -22,8 +22,15 @@ from ti_raytrace_tpu_torch.texture.texture import pack_blocks
 
 @dataclass(frozen=True)
 class SceneData:
-    mat_type: torch.Tensor      # (M,) int32 MAT_DISNEY/GLASS/LIGHT
+    mat_type: torch.Tensor      # (M,) int32 MAT_DISNEY/GLASS/LIGHT/SPECTRAL
+    # --- primitives (P,): what the dense sweep reads (ops/dense_trace.py)
+    prim_type: torch.Tensor     # (P,) int32 PRIM_TRI / PRIM_SHAPE
+    prim_vidx: torch.Tensor     # (P,) int32 base vertex index | shape index
+    tri_v0: torch.Tensor        # (P,3) f32 (zero rows for shape prims)
+    tri_e1: torch.Tensor        # (P,3) f32 v1 - v0
+    tri_e2: torch.Tensor        # (P,3) f32 v2 - v0
     # --- analytic shapes (S,)
+    shape_type: torch.Tensor    # (S,) int32 SHAPE_SPHERE/QUAD/SPOT/LASER
     shape_pos: torch.Tensor     # (S,3) f32
     shape_param: torch.Tensor   # (S,6) f32 (radius | ...)
     # --- environment
@@ -42,6 +49,7 @@ class SceneData:
     aabb_max: torch.Tensor      # (3,) f32
     # --- host-side static facts
     n_prims: int
+    n_tris: int                 # vertex count // 3 (the reference's triangle count)
     n_lights: int
     sphere_prims: tuple         # ((prim id, shape index), ...) of sphere shapes
 
@@ -52,7 +60,7 @@ class SceneData:
 
 def device_scene(host: dict, device="cpu") -> SceneData:
     """Assemble a SceneData on `device` from a dict of numpy arrays (the
-    fields the ported slice reads; later slices add theirs)."""
+    fields the port reads)."""
     def arr(key, dt=torch.float32):
         return torch.as_tensor(np.asarray(host[key]), dtype=dt).to(device).contiguous()
 
@@ -69,6 +77,12 @@ def device_scene(host: dict, device="cpu") -> SceneData:
     cluster_bounds = arr("cluster_bounds")
     return SceneData(
         mat_type=arr("mat_type", torch.int32),
+        prim_type=arr("prim_type", torch.int32),
+        prim_vidx=arr("prim_vidx", torch.int32),
+        tri_v0=arr("tri_v0"),
+        tri_e1=arr("tri_e1"),
+        tri_e2=arr("tri_e2"),
+        shape_type=arr("shape_type", torch.int32),
         shape_pos=arr("shape_pos"),
         shape_param=arr("shape_param"),
         env_img=torch.as_tensor(env).to(device),
@@ -82,6 +96,7 @@ def device_scene(host: dict, device="cpu") -> SceneData:
         aabb_min=arr("aabb_min"),
         aabb_max=arr("aabb_max"),
         n_prims=P,
+        n_tris=T,
         n_lights=int(np.asarray(host["light_prim"]).shape[0]),
         sphere_prims=tuple(spheres),
     )

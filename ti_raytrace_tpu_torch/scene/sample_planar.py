@@ -54,8 +54,10 @@ def sample_li(scene, shade_pos, u3):
 
     shade_pos: (3, N); u3: (3, N) uniforms (light pick, then the point on
     it).  Returns dict(pos, normal, direction, emission, dist, prim,
-    choice_pdf, dir_pdf, dir_pdf_std, vis); direction points from the
-    light toward the receiver."""
+    choice_pdf, dir_pdf, dir_pdf_std, em_c0, em_c1, em_c2, em_scale,
+    vis); direction points from the light toward the receiver; the em_*
+    rows are the light's spectral pack (zeros unless the scene was built
+    with spectral=True)."""
     col, _ = _pick_light(scene, u3[0])
     pos, nrm, is_tri = _point_on_light(col, u3[1], u3[2])
 
@@ -103,6 +105,10 @@ def sample_li(scene, shade_pos, u3):
         choice_pdf=choice_pdf,
         dir_pdf=dir_pdf,
         dir_pdf_std=dir_pdf_std,
+        em_c0=col[32],
+        em_c1=col[33],
+        em_c2=col[34],
+        em_scale=col[35],
         vis=vis,
     )
 
@@ -111,9 +117,10 @@ def sample_light(scene, u6):
     """Emitter-side sample for BDPT light subpaths (the reference's
     Scene.sample_light), planar.  u6: (6, N) uniforms (light pick, point,
     direction, laser disk angle).  Returns dict(pos, normal, direction,
-    emission, prim, choice_pdf, dir_pdf, dir_pdf_std); dir_pdf is the
-    reference's density floored at 0.01, dir_pdf_std the unfloored one
-    (the corrected estimator's)."""
+    emission, prim, choice_pdf, dir_pdf, dir_pdf_std, em_c0, em_c1,
+    em_c2, em_scale); dir_pdf is the reference's density floored at 0.01,
+    dir_pdf_std the unfloored one (the corrected estimator's); the em_*
+    rows are the light's spectral pack, as in `sample_li`."""
     col, _ = _pick_light(scene, u6[0])
     pos, nrm, is_tri = _point_on_light(col, u6[1], u6[2])
 
@@ -165,4 +172,8 @@ def sample_light(scene, u6):
         choice_pdf=choice_pdf,
         dir_pdf=dir_pdf,
         dir_pdf_std=dir_pdf_std,
+        em_c0=col[32],
+        em_c1=col[33],
+        em_c2=col[34],
+        em_scale=col[35],
     )

@@ -1,6 +1,6 @@
 """Golden-image gate of the port (twin of ti_raytrace_tpu/tools/golden.py):
 
-    python -m ti_raytrace_tpu_torch.tools.golden --scene veach_bdpt \
+    python -m ti_raytrace_tpu_torch.tools.golden --scene cornell_box \
         [--frames N] [--size 512] [--device cuda] [--out veach.png]
 
 Renders a reference scene, tone-maps it with the reference's pipeline
@@ -8,9 +8,9 @@ Renders a reference scene, tone-maps it with the reference's pipeline
 the reference's committed PNG in 8-bit-normalized space and checks it
 against the bound recorded in the JAX package's
 `ti_raytrace_tpu/tools/golden_bounds.json` (read as a file: the port does
-not import that package).  Exit 1 on a regression.  Only the targets of
-ported scenes and integrators run; the others raise NotImplementedError
-naming their ROADMAP item.
+not import that package).  Exit 1 on a regression.  Targets: cornell_box,
+sky_dome, spectral_box, veach_bdpt, veach_pt; prism_rainbow raises
+NotImplementedError naming its ROADMAP item.
 """
 
 import argparse
@@ -39,12 +39,7 @@ TARGETS = {
     "prism_rainbow": ("prism_rainbow", None, "image/rainbow-far.png", 64),
 }
 
-_UNPORTED = {
-    "cornell_box": "the dense tracer + the cornell/single_model slice",
-    "sky_dome": "spectral PT",
-    "spectral_box": "spectral PT",
-    "prism_rainbow": "spectral BDPT and prism",
-}
+_UNPORTED = {"prism_rainbow": "spectral BDPT and prism"}
 
 
 def log(*a):
@@ -54,30 +49,28 @@ def log(*a):
 def render_scene(name: str, frames: int, size: int, integrator, device) -> tuple:
     """The scene's film tone-mapped to sRGB (W, H, 3) in [0, 1], and the
     host seconds per frame (each batch ends in a synchronize).  The
-    scene's own integrator unless `integrator` overrides it; BDPT renders
-    as the CLI does (render_frame_sliced in 2 slices, the scene's walk
-    compaction and shadow cap)."""
+    scene's own integrator unless `integrator` overrides it, with the
+    scene's compaction schedule; BDPT renders as the CLI does
+    (render_frame_sliced in 2 slices, the scene's walk compaction and
+    shadow cap), the spectral path tracer with the scene's sky and
+    emitter scale."""
     from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.run import render_batch, spectral_data
     from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
-    from ti_raytrace_tpu_torch.integrators import bdpt_rgb, pt_rgb
 
     scene, cfg = EXAMPLES[name](device)
     integrator = integrator or cfg.integrator
-    if integrator not in ("pt_rgb", "bdpt_rgb"):
+    if integrator not in ("pt_rgb", "pt_spec", "bdpt_rgb"):
         raise NotImplementedError(f"integrator {integrator!r}: ROADMAP 'to port'")
     spec, cam = make_camera(scene, cfg, size, size)
-    nee = pt_rgb.has_nee_materials(scene)
+    sdata = spectral_data(cfg, integrator, device)
+    batch = 4 if integrator == "bdpt_rgb" else 8
     fl = film_mod.new_film(size, size, device=device)
     t0 = time.perf_counter()
     while fl.frame < frames:
-        if integrator == "bdpt_rgb":
-            fl, kills = bdpt_rgb.render_film_frames(
-                scene, spec, cam, fl, n_frames=min(4, frames - fl.frame), n_slices=2,
-                walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
-        else:
-            fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl,
-                                                  n_frames=min(8, frames - fl.frame),
-                                                  compaction=cfg.compaction, nee=nee)
+        # frame after frame (group 0), as the reference's gate renders
+        fl, kills = render_batch(scene, cfg, spec, cam, fl, min(batch, frames - fl.frame),
+                                 integrator, 0, sdata)
         if kills:
             raise RuntimeError(f"{name}: {kills} compaction overflow kills")
     if device.type == "cuda":

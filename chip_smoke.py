@@ -8,10 +8,12 @@ Drives the port's paths — the 100k-triangle benchmark scene rendered by
 scene rendered by `pt_rgb.render_film_frames` with NEE (the reference's
 veach_pt golden path), the same scene under BDPT
 (`bdpt_rgb.render_frame_sliced` in 2 slices, the veach_bdpt golden path),
-and the four path-traced scenes of the dense tracer (single_model,
-cornell_box, sky_dome, spectral_box) — and holds the CUDA kernel against
-its plain PyTorch version in every mode the paths use, and the dense
-sweep, which is plain torch ops, against the cluster tracer.
+the four path-traced scenes of the dense tracer (single_model,
+cornell_box, sky_dome, spectral_box) and the prism dispersion scene under
+spectral BDPT (`bdpt_spec.make_render_frame`, unsliced, the prism_rainbow
+golden path) — and holds the CUDA kernel against its plain PyTorch version
+in every mode the paths use, and the dense sweep, which is plain torch
+ops, against the cluster tracer.
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
@@ -70,13 +72,33 @@ Phases, each printing its own lines; any failure exits non-zero:
      each: phase 12's checks (a spectral HDR may be negative in a channel:
      XYZ -> sRGB of an out-of-gamut colour);
  17. the same 32^2 render on CUDA and on the CPU for each of the four
-     scenes, as in phase 5.
+     scenes, as in phase 5;
+ 18. prism_rainbow (3,154 prims: the dense tracer) at 512^2 under spectral
+     BDPT, unsliced, as the CLI renders it, with the scene's walk
+     compaction and shadow cap 0.09: a warm-up frame, then PRISM_FRAMES
+     timed frames; zero overflow (walk compaction plus capped shadow
+     lanes), a finite HDR with mean > 0 (a spectral HDR may be negative in
+     a channel), no launch of the cluster kernel, ms/frame and the peak
+     device memory; one frame rendered twice from one key, bit-equal; and
+     the same frame without the cap: its overflow, its time and peak
+     memory, and whether it equals the capped frame bit for bit (else the
+     two image sums);
+ 19. prism's two largest wavefronts, recorded at the integrator's calls of
+     the tracer: the fused depth-1 walk (524,288 lanes) and the shadow
+     batch packed to its capacity (471,936 lanes, with per-lane tmax) —
+     the kernel vs cluster_trace_plain in sorted mode with phase 3's bar,
+     then the dense sweep vs `trace_clustered` with phase 13's bar; the
+     dense sweep ignores tmax and the cluster tracer honours it, so the
+     shadow batch is compared on the dense hits within the bound, which is
+     what its caller reads (a hit within rtol 1e-5 of its bound may fall
+     on either side: counted, at most 0.1% of the lanes);
+ 20. the same 32^2 prism render on CUDA and on the CPU, as in phase 5.
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
 PLAIN_TILES tiles to bound its memory.  The next-to-last line is a JSON
-object describing the kernel (launches summed over the three paths'
-counted runs, max_abs_err the worst over every compared wavefront, ms,
+object describing the kernel (launches summed over the counted runs of
+the three paths that reach it, max_abs_err the worst over every compared wavefront, ms,
 plain_ms and bound_ms of the bench camera wavefront, and each compared
 wavefront's figures with its width's launches per frame in its path's
 counted run); the last line is {"ok": true, "device": {...}}.
@@ -101,6 +123,7 @@ BDPT_FRAMES = 4
 DENSE_GROUPS = 1  # timed single_model groups of 16 frames
 CORNELL_FRAMES = 8
 SPEC_FRAMES = 4
+PRISM_FRAMES = 2
 DENSE_REPS = 3   # timed traces per tracer in phase 13
 PLAIN_TILES = 1024  # tiles per block of the plain version
 T_RTOL = 1e-5
@@ -487,7 +510,7 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
     kills += warm_kills
     hdr = fl.hdr
     # XYZ -> sRGB leaves out-of-gamut spectral colours negative in a channel
-    signed = cfg.integrator == "pt_spec"
+    signed = cfg.integrator in ("pt_spec", "bdpt_spec")
     ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
               and (signed or bool((hdr >= 0).all())) and float(hdr.mean()) > 0.0)
     log(f"{tag} {name} {SIZE}^2, {cfg.integrator}, {scene.n_prims} prims, schedule "
@@ -558,7 +581,7 @@ def phase_dense_path(tag, name, frames, sync):
     _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, sdata)
 
 
-def phase_dense_parity(name):
+def phase_dense_parity(name, phase=17):
     from ti_raytrace_tpu_torch import film as film_mod
     from ti_raytrace_tpu_torch.examples.run import spectral_data
     from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
@@ -572,7 +595,99 @@ def phase_dense_parity(name):
                                   spectral_data(cfg, cfg.integrator, dev))
         return fl.hdr, kills
 
-    _small_parity(f"[17 {name} parity]", render)
+    _small_parity(f"[{phase} {name} parity]", render)
+
+
+def phase_prism(sync):
+    """Phase 18, then phase 19 on the wavefronts of one more frame.
+    Returns (max |dt| of the kernel against its plain version, its rows)."""
+    import dataclasses
+
+    import torch
+
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.core import rng
+    from ti_raytrace_tpu_torch.examples.run import spectral_data
+    from ti_raytrace_tpu_torch.examples.scenes import make_camera, prism_rainbow
+    from ti_raytrace_tpu_torch.ops import cluster_trace as ct
+    from ti_raytrace_tpu_torch.tools.dense_sweep import compare, prism_wavefronts, render_frames
+
+    tag = "[18 prism_rainbow]"
+    scene, cfg = prism_rainbow("cuda")
+    spec, cam = make_camera(scene, cfg, SIZE, SIZE)
+    render = spectral_data(cfg, cfg.integrator, scene.device)
+    fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
+    t0 = time.perf_counter()
+    fl, warm = render_frames(scene, cfg, spec, cam, fl, 1, render)
+    sync()
+    log(f"{tag} warm-up frame {time.perf_counter() - t0:.2f} s, overflow {warm}; walk "
+        f"compaction {cfg.bdpt_walk_compaction}, shadow cap {cfg.bdpt_shadow_cap}")
+    torch.cuda.reset_peak_memory_stats()
+    _dense_path(tag, "prism_rainbow", scene, cfg, spec, cam, fl, PRISM_FRAMES, sync, warm,
+                render)
+    peak = torch.cuda.max_memory_allocated()
+
+    def timed(fn):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+
+    key = rng.PRNGKey(7)
+    a, _, _ = timed(lambda: render(scene, spec, cam, 3, key))
+    (b, ov_b), ms_capped, _ = timed(lambda: render(scene, spec, cam, 3, key,
+                                                   return_overflow=True))
+    same = bool(torch.equal(a, b))
+    log(f"{tag} capped frames: peak memory {peak / 2 ** 20:.1f} MiB; one frame rendered "
+        f"twice from one key: bit-equal={same} (mean {float(a.mean()):.5f}, "
+        f"{ms_capped:.3f} ms, overflow {int(ov_b)})")
+    uncapped = spectral_data(dataclasses.replace(cfg, bdpt_shadow_cap=None), cfg.integrator,
+                             scene.device)
+    uncapped(scene, spec, cam, 3, key)  # warm-up at the uncapped widths
+    (u, ov_u), ms_uncapped, peak_u = timed(lambda: uncapped(scene, spec, cam, 3, key,
+                                                            return_overflow=True))
+    cap_equal = bool(torch.equal(u, a))
+    log(f"{tag} the same frame without the shadow cap: {ms_uncapped:.3f} ms against "
+        f"{ms_capped:.3f} ms capped; overflow {int(ov_u)}; peak memory "
+        f"{peak_u / 2 ** 20:.1f} MiB; bit-equal to the capped frame={cap_equal}; image sums "
+        f"{float(u.double().sum()):.6f} uncapped, {float(a.double().sum()):.6f} capped")
+    if not same:
+        fail("two renders of one prism frame from one key differ")
+    if int(ov_b) != 0 or int(ov_u) != 0:
+        fail(f"overflow on one prism frame: {int(ov_b)} capped, {int(ov_u)} uncapped")
+    if not cap_equal and abs(float(u.double().sum()) / float(a.double().sum()) - 1.0) > 1e-3:
+        fail("the shadow cap changed the prism frame though it cut no lane")
+    del a, b, u
+
+    tag = "[19 prism wavefronts]"
+    waves, n_active = prism_wavefronts(scene, cfg, spec, cam)
+    widths = [w[1].shape[1] for w in waves]
+    log(f"{tag} recorded widths {widths}; {n_active} of the packed shadow batch's lanes "
+        f"are active")
+    if widths != [2 * SIZE * SIZE, 471936] or not 0 < n_active <= widths[1]:
+        fail(f"one prism frame traced the widths {widths} with {n_active} active shadow lanes")
+    kernel_waves = [(f"{name} (sorted)", ct.kernel_inputs(scene, o, d, True, tmax=tmax)[0])
+                    for name, o, d, tmax in waves]
+    max_err, rows = _compare_all(kernel_waves, tag)
+    for name, o, d, tmax in waves:
+        r = compare(scene, o, d, None, DENSE_REPS, tmax=tmax)
+        log(f"{tag} dense vs cluster, {name}: {r['lanes']} lanes x {r['prims']} prims, "
+            f"{r['hits']} hits{'' if tmax is None else ' within the bound'}; misses equal="
+            f"{r['misses_equal']}; max|dt| {r['max_abs_dt']:.3e} (rtol {T_RTOL} "
+            f"ok={r['t_ok']}); prim mismatch {r['prim_mismatch_frac']:.2e} of hits (ties "
+            f"ok={r['ties_ok']}); {r['at_bound']} lanes at their bound")
+        log(f"{tag} dense vs cluster, {name}: dense sweep {r['dense_ms']:.3f} ms, cluster "
+            f"tracer {r['cluster_ms']:.3f} ms (its kernel alone {r['cluster_kernel_ms']:.4f} "
+            f"ms); sweep bound {r['bound_ms']:.4f} ms by operations; share {r['share']:.4f}")
+        if not (r["hits"] > 0 and r["misses_equal"] and r["t_ok"] and r["ties_ok"]
+                and r["prim_mismatch_frac"] <= PRIM_TIE_FRAC
+                and r["at_bound"] <= PRIM_TIE_FRAC * r["lanes"]):
+            fail(f"the dense sweep disagrees with the cluster tracer on prism's {name}")
+    del waves, kernel_waves
+    torch.cuda.empty_cache()
+    return max_err, rows
 
 
 def main():
@@ -633,9 +748,14 @@ def main():
     phase_dense_path("[16 spectral_box]", "spectral_box", SPEC_FRAMES, sync)
     for name in ("single_model", "cornell_box", "sky_dome", "spectral_box"):
         phase_dense_parity(name)
+    err_p, prism_rows = phase_prism(sync)
+    max_err = max(max_err, err_p)
+    _attach_launches(prism_rows, {})  # the prism path takes the dense tracer: 0 launches
+    phase_dense_parity("prism_rainbow", phase=20)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows))
+    paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
+             ("prism_rainbow", prism_rows))
     print(json.dumps({"kernels": [{
         "name": "cluster_trace",
         "route": "cuda",

@@ -205,12 +205,15 @@ def test_trace_sorted_mode_matches_reference(scenes, seed):
     dict(sort_rays=False, tmax=torch.ones(40)),
     dict(sort_rays=False, active=torch.ones(40, dtype=torch.bool), cap_frac=0.5),
 ])
-def test_unported_modes_raise(scenes, kwargs):
-    """The BDPT modes run on the cluster tracer (the tests below and
-    test_torch_bdpt.py), and a scene of at most DENSE_MAX_PRIMS prims
-    takes the dense tracer in every mode (test_torch_dense_trace.py).
-    What still raises, naming its ROADMAP item: the prism scene and the
-    spectral BDPT that renders it."""
+def test_unported_modes_raise(scenes, kwargs, capsys):
+    """No tracer mode is unported: the BDPT modes run on the cluster tracer
+    (the tests below and test_torch_bdpt.py), a scene of at most
+    DENSE_MAX_PRIMS prims takes the dense tracer in every mode
+    (test_torch_dense_trace.py), and the prism scene, whose spectral BDPT
+    sends its capped shadow batch with `tmax`, `active` and `cap_frac` to
+    the dense tracer, renders through the CLI."""
+    import json
+
     from test_torch_dense_gpu import tie_rays, tie_scene
     from ti_raytrace_tpu_torch.accel import trace
     from ti_raytrace_tpu_torch.examples import run
@@ -223,8 +226,11 @@ def test_unported_modes_raise(scenes, kwargs):
     so, sd = tie_rays(40)
     t, prim = trace(device_scene(tie_scene((5, 77)), "cpu"), so, sd, **kwargs)
     assert (prim == 5).all() and (t == 3.0).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
-        run.main(["prism_rainbow", "--size", "8", "--device", "cpu"])
+    run.main(["prism_rainbow", "--size", "8", "--frames", "1", "--device", "cpu",
+              "--out", "/dev/null"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["integrator"] == "bdpt_spec" and line["frames"] == 1
+    assert line["overflow_kills"] == 0
 
 
 def _bounded_rays(scene, host, ts, n, seed):

@@ -170,18 +170,40 @@ def test_cli_renders_scene_and_resumes_checkpoint(name, tmp_path, capsys):
     np.testing.assert_allclose(b.hdr.numpy(), a.hdr.numpy(), rtol=1e-6, atol=1e-7)
 
 
-def test_cli_debug_and_unported():
-    """The debug integrator through the CLI; prism_rainbow and the spectral
-    BDPT still raise, naming their ROADMAP item."""
+def test_cli_debug_and_unported(tmp_path, capsys):
+    """Every scene of the reference is a CLI scene now: prism_rainbow
+    renders with its own integrator, the spectral BDPT.  A scene built
+    without the spectral pack rows renders black under `--integrator
+    bdpt_spec`, as the reference does there (checked by running it at 8^2:
+    its emitters carry no power in the zero rows); an unknown scene or
+    integrator is a ValueError."""
+    from ti_raytrace_tpu_torch import film as tfilm
     from ti_raytrace_tpu_torch.examples import run
     from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES
 
-    assert sorted(EXAMPLES) == ["benchmark_100k", "cornell_box", "single_model", "sky_dome",
-                                "spectral_box", "veach_bdpt"]
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
-        run.main(["prism_rainbow", "--size", "8", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
-        run.main(["cornell_box", "--integrator", "bdpt_spec", "--size", "8", "--device", "cpu"])
+    assert sorted(EXAMPLES) == ["benchmark_100k", "cornell_box", "prism_rainbow",
+                                "single_model", "sky_dome", "spectral_box", "veach_bdpt"]
+
+    def cli(*argv):
+        run.main(list(argv) + ["--size", "8", "--frames", "2", "--device", "cpu", "--out",
+                               str(tmp_path / "o.png"), "--checkpoint", str(tmp_path / "c.npz")])
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        fl = tfilm.load_checkpoint(str(tmp_path / "c.npz"))
+        (tmp_path / "c.npz").unlink()
+        return line, fl
+
+    line, fl = cli("prism_rainbow")
+    assert line["scene"] == "prism_rainbow" and line["integrator"] == "bdpt_spec"
+    assert line["frames"] == fl.frame == 2 and line["batch"] == 4 and line["overflow_kills"] == 0
+    assert bool(torch.isfinite(fl.hdr).all()) and float(fl.hdr.mean()) > 0.0
+    assert (tmp_path / "o.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    line, fl = cli("cornell_box", "--integrator", "bdpt_spec")
+    assert line["integrator"] == "bdpt_spec" and line["overflow_kills"] == 0
+    assert fl.frame == 2 and not bool(fl.hdr.any())
+    with pytest.raises(ValueError, match="unknown scene"):
+        run.main(["rainbow", "--size", "8", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown integrator"):
+        run.main(["cornell_box", "--integrator", "bdpt", "--size", "8", "--device", "cpu"])
 
 
 def test_cli_debug_integrator(tmp_path, capsys):

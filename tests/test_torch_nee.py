@@ -276,14 +276,21 @@ def test_cli_renders_veach_with_nee(tmp_path, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["nee"] and line["frames"] == 2 and line["overflow_kills"] == 0
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
-    with pytest.raises(NotImplementedError, match="spectral BDPT and prism"):
-        run.main(["veach_bdpt", "--integrator", "bdpt_spec", "--size", "8", "--frames", "1",
-                  "--device", "cpu"])
+    # the spectral BDPT runs on it too; the scene has no spectral pack rows,
+    # so its emitters carry no power there (the reference renders it black)
+    run.main(["veach_bdpt", "--integrator", "bdpt_spec", "--size", "8", "--frames", "1",
+              "--device", "cpu", "--out", str(out)])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["integrator"] == "bdpt_spec" and line["frames"] == 1
+    assert line["overflow_kills"] == 0 and line["nee"] is None
 
 
-def test_golden_gate_reads_reference_bounds():
+def test_golden_gate_reads_reference_bounds(capsys):
     """The port's golden gate reads the reference's bound and PNG by path;
-    the target of the unported prism scene raises naming its ROADMAP item."""
+    every target of the reference's table renders, prism_rainbow (spectral
+    BDPT) among them."""
+    import json
+
     from ti_raytrace_tpu.io.image import image_to_film
     from ti_raytrace_tpu.tools.golden import BOUNDS_PATH as JBOUNDS
     from ti_raytrace_tpu.tools.golden import mean_abs_diff as jdiff
@@ -298,6 +305,12 @@ def test_golden_gate_reads_reference_bounds():
     assert golden.mean_abs_diff(film, ref) == 0.0
     half = film[::2, ::2]  # a 256^2 film: the reference is nearest-resized
     assert golden.mean_abs_diff(half, ref) == jdiff(half, ref) > 0.0
-    assert set(golden._UNPORTED) == {"prism_rainbow"} < set(golden.TARGETS)
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port'"):
-        golden.main(["--scene", "prism_rainbow", "--device", "cpu"])
+    from ti_raytrace_tpu.tools.golden import TARGETS as JTARGETS
+
+    assert not hasattr(golden, "_UNPORTED") and golden.TARGETS == JTARGETS
+    rc = golden.main(["--scene", "prism_rainbow", "--size", "8", "--frames", "1",
+                      "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["scene"] == "prism_rainbow" and line["bound"] == 0.0958
+    assert line["frames"] == 1 and line["diff"] > 0.0
+    assert rc == (0 if line["diff"] <= line["bound"] else 1)

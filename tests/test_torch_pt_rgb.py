@@ -176,12 +176,14 @@ def test_overflow_kills_are_counted(scenes):
     assert kills > 0 and fl.frame == 1
 
 
-def test_unported_paths_raise(scenes):
-    """What is still outside the port raises, naming its ROADMAP item:
-    the prism scene as a CLI scene and as a golden target, the spectral
-    BDPT that renders it, and the CLI's live preview.  The BDPT tracer
-    modes, the corrected estimator, compaction calibration, the dense
-    tracer and the spectral path tracer now run."""
+def test_unported_paths_raise(scenes, capsys):
+    """What is still outside the port raises, naming its ROADMAP item: the
+    CLI's live preview.  The BDPT tracer modes, the corrected estimator,
+    compaction calibration, the dense tracer, the spectral path tracer,
+    and now the prism scene (as a CLI scene and as a golden target) and
+    the spectral BDPT that renders it, run."""
+    import json
+
     from ti_raytrace_tpu_torch import film as tfilm
     from ti_raytrace_tpu_torch.accel import trace
     from ti_raytrace_tpu_torch.examples import run
@@ -197,15 +199,20 @@ def test_unported_paths_raise(scenes):
     assert t.shape == (40,)
     img = tpt.render_frame(ts, spec, cam, 1, fl.key, corrected=True, max_depth=2)
     assert img.shape == (16, 16, 3) and bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
-        run.main(["prism_rainbow", "--size", "8", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
-        golden.main(["--scene", "prism_rainbow", "--device", "cpu"])
+    run.main(["prism_rainbow", "--size", "8", "--frames", "1", "--device", "cpu",
+              "--out", "/dev/null"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["integrator"] == "bdpt_spec" and line["overflow_kills"] == 0
+    assert golden.main(["--scene", "prism_rainbow", "--size", "8", "--frames", "1",
+                        "--device", "cpu"]) in (0, 1)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["scene"] == "prism_rainbow" and line["bound"] == 0.0958
     sched = tpt.calibrate_compaction(ts, spec, cam, probe_size=16, max_depth=3)
     assert sched is None or all(dv >= 2 for _, dv in sched)
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': spectral BDPT and prism"):
-        run.main(["cornell_box", "--integrator", "bdpt_spec", "--size", "8",
-                  "--device", "cpu"])
+    run.main(["cornell_box", "--integrator", "bdpt_spec", "--size", "8", "--frames", "1",
+              "--device", "cpu", "--out", "/dev/null"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["integrator"] == "bdpt_spec" and line["frames"] == 1
     with pytest.raises(NotImplementedError, match="ROADMAP 'to port': auxiliary modules"):
         run.main(["benchmark_100k", "--preview", "--size", "8", "--device", "cpu"])
     with pytest.raises(ValueError, match="compaction schedule"):

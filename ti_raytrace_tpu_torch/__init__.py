@@ -5,17 +5,20 @@ Same module layout and public names as the JAX package
 against.  This package imports torch and numpy only — never jax and never
 the JAX package — so it runs on a machine that has neither.
 
-Ported so far: the 100k-triangle progressive path tracer
+Every scene of the reference renders with every integrator it has: the
+100k-triangle progressive path tracer
 (`examples/scenes.benchmark_100k` -> `integrators/pt_rgb.
 render_film_frames_merged`); the Veach MIS scene under the path tracer
 with next-event estimation (`pt_rgb.render_film_frames`, `nee=True`) and
 under bidirectional path tracing (`integrators/bdpt_rgb`); and the four
 path-traced scenes of the dense tracer (`ops/dense_trace.py`):
 cornell_box and single_model under `pt_rgb`, sky_dome and spectral_box
-under the hero-wavelength spectral path tracer (`integrators/pt_spec`),
-with the debug AOVs (`integrators/debug`) and the golden gates
-(`tools/golden.py`).  The cluster traversal is a hand-written CUDA
+under the hero-wavelength spectral path tracer (`integrators/pt_spec`);
+and prism_rainbow under spectral BDPT (`integrators/bdpt_spec`), with the
+debug AOVs (`integrators/debug`), the golden gates (`tools/golden.py`),
+the BDPT strategy decomposition (`tools/bdpt_decompose.py`) and the speed
+benchmark (`tools/bench.py`, run by `bench_torch.py`).  The cluster traversal is a hand-written CUDA
 kernel (`csrc/cluster_trace.cu`, wrapped by `ops/cluster_trace.py`); the
-dense sweep is plain torch ops.  Everything outside the ported slices
-raises NotImplementedError naming its ROADMAP item.
+dense sweep is plain torch ops.  What is not ported (the CLI's live
+preview) raises NotImplementedError naming its ROADMAP item.
 """

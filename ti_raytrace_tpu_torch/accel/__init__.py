@@ -43,6 +43,20 @@ def trace(scene, origin, direction, sort_rays: bool = True, sort_small: bool = F
     return t, prim
 
 
+def trace_capacity(scene, n: int, cap_frac: float):
+    """Lanes that `trace(..., active=, cap_frac=)` runs on for a wavefront
+    of n lanes of this scene, or None where it runs on all of them (the
+    cluster tracer below its sort threshold).  Active lanes beyond the
+    capacity come back as misses: callers count them as kills."""
+    if scene.n_prims <= DENSE_MAX_PRIMS:
+        from ti_raytrace_tpu_torch.ops.dense_trace import capacity_lanes
+
+        return capacity_lanes(n, cap_frac)
+    from ti_raytrace_tpu_torch.ops.cluster_trace import SMALL_WAVEFRONT, capacity_lanes
+
+    return capacity_lanes(n, cap_frac) if n > SMALL_WAVEFRONT else None
+
+
 def trace_shaded(scene, origin, direction, sort_rays: bool = True, sort_small: bool = False,
                  shared_origin=None, tile_order: bool = False, active=None, cap_frac=None):
     """Planar closest hit + shading pack -> (t, prim, uv_bary, attr).

@@ -8,9 +8,11 @@
         --size 512 --frames 64 --device cuda --out /tmp/veach.png
     python -m ti_raytrace_tpu_torch.examples.run spectral_box \
         --size 512 --frames 64 --device cuda --checkpoint /tmp/box.npz
+    python -m ti_raytrace_tpu_torch.examples.run prism_rainbow \
+        --size 512 --frames 64 --device cuda --out /tmp/prism.png
 
 Scenes: cornell_box, single_model, sky_dome, spectral_box, veach_bdpt,
-benchmark_100k.  Progressive rendering, 1 spp per frame, with the scene's
+prism_rainbow, benchmark_100k.  Progressive rendering, 1 spp per frame, with the scene's
 own integrator unless --integrator overrides it.  The path tracer
 (`pt_rgb`): scenes with a merged group and a compaction schedule (the
 benchmark, single_model) render in merged groups; the others render
@@ -21,8 +23,12 @@ path tracer (`pt_spec`): `batch` frames per call of
 `render_film_frames_spec` with the scene's sky and emitter scale.  BDPT
 (`bdpt_rgb`): every frame is `render_frame_sliced` in 2 slices with the
 scene's walk compaction and shadow cap, accumulated into the film,
-`batch` frames per call (the scene's batch, or 4).  `debug`: the albedo
-AOV, one frame per call.  A call never crosses a multiple of
+`batch` frames per call (the scene's batch, or 4).  Spectral BDPT
+(`bdpt_spec`): every frame unsliced (`bdpt_spec.make_render_frame`) with
+the scene's emitter scale, walk compaction and shadow cap, `batch` frames
+per call as for BDPT; a scene built without the spectral pack rows renders
+black under it, as in the reference (its emitters carry no power there).
+`debug`: the albedo AOV, one frame per call.  A call never crosses a multiple of
 --snapshot-every frames: there the PNG is written, and with --checkpoint
 the film too (an existing checkpoint is resumed: same frame count, same
 key chain).  A merged call that would be no whole number of groups (a
@@ -42,24 +48,33 @@ import torch
 
 from ti_raytrace_tpu_torch import film as film_mod
 from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
-from ti_raytrace_tpu_torch.integrators import bdpt_rgb, debug, pt_rgb, pt_spec
+from ti_raytrace_tpu_torch.integrators import bdpt_rgb, bdpt_spec, debug, pt_rgb, pt_spec
 
-INTEGRATORS = ("pt_rgb", "pt_spec", "bdpt_rgb", "debug")
+INTEGRATORS = ("pt_rgb", "pt_spec", "bdpt_rgb", "bdpt_spec", "debug")
+BDPT = ("bdpt_rgb", "bdpt_spec")
 
 
 def spectral_data(cfg, integrator: str, device):
-    """The scene config's SpectralData on `device` for the spectral path
-    tracer, None for any other integrator."""
-    if integrator != "pt_spec":
-        return None
-    return pt_spec.make_spectral_data(**cfg.sky, device=device)
+    """What a spectral integrator closes over, on `device`, from the scene
+    config: the SpectralData of the spectral path tracer, the frame
+    renderer of the spectral BDPT (its sensor and D65 tables with the
+    config's emitter scale, walk compaction and shadow cap); None for any
+    other integrator."""
+    if integrator == "pt_spec":
+        return pt_spec.make_spectral_data(**cfg.sky, device=device)
+    if integrator == "bdpt_spec":
+        return bdpt_spec.make_render_frame(
+            **cfg.sky, walk_compaction=cfg.bdpt_walk_compaction,
+            shadow_cap=cfg.bdpt_shadow_cap, device=device)
+    return None
 
 
 def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int = 0,
                  sdata=None):
     """n frames into the film by `integrator` with the scene config's
     schedule: BDPT in 2 slices with the config's walk compaction and
-    shadow cap; the spectral path tracer with `sdata`; the albedo AOV for
+    shadow cap; the spectral BDPT unsliced and the spectral path tracer
+    with `sdata` (`spectral_data` of that integrator); the albedo AOV for
     `debug`; pt_rgb (NEE by `has_nee_materials`) in merged groups of
     `group` where the scene has a schedule, group > 1 and n is a whole
     number of groups, else frame after frame.  Returns (film', overflow)."""
@@ -67,6 +82,8 @@ def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int 
         return bdpt_rgb.render_film_frames(
             scene, spec, cam, fl, n_frames=n, n_slices=2,
             walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
+    if integrator == "bdpt_spec":
+        return bdpt_spec.render_film_frames(scene, spec, cam, fl, sdata, n_frames=n)
     if integrator == "pt_spec":
         return pt_spec.render_film_frames_spec(scene, sdata, spec, cam, fl, n_frames=n,
                                                compaction=cfg.compaction)
@@ -111,17 +128,14 @@ def main(argv=None):
         raise NotImplementedError("--preview is outside the ported slice (ROADMAP 'to "
                                   "port': auxiliary modules, examples/preview.py)")
     if args.example not in EXAMPLES:
-        raise NotImplementedError(
-            f"scene {args.example!r} is outside the ported slice (ported: "
-            f"{sorted(EXAMPLES)}; ROADMAP 'to port': spectral BDPT and prism)")
+        raise ValueError(f"unknown scene {args.example!r} (scenes: {sorted(EXAMPLES)})")
 
     device = torch.device(args.device)
     scene, cfg = EXAMPLES[args.example](device)
     integrator = args.integrator or cfg.integrator
     if integrator not in INTEGRATORS:
-        raise NotImplementedError(
-            f"integrator {integrator!r} is outside the ported slice (ported: "
-            f"{', '.join(INTEGRATORS)}; ROADMAP 'to port': spectral BDPT and prism)")
+        raise ValueError(f"unknown integrator {integrator!r} (integrators: "
+                         f"{', '.join(INTEGRATORS)})")
     spec, cam = make_camera(scene, cfg, args.size, args.size)
     pt = integrator == "pt_rgb"
     nee = pt_rgb.has_nee_materials(scene) if pt else None
@@ -130,7 +144,7 @@ def main(argv=None):
     if merged:
         batch = group
     else:
-        batch = {"bdpt_rgb": cfg.batch or 4, "debug": 1}.get(integrator, cfg.batch or 8)
+        batch = 1 if integrator == "debug" else cfg.batch or (4 if integrator in BDPT else 8)
     sdata = spectral_data(cfg, integrator, device)
 
     fl = film_mod.new_film(args.size, args.size, seed=args.seed, device=device)
@@ -151,7 +165,7 @@ def main(argv=None):
         counts.append(n)
         kills += ov
         print(f"frame {fl.frame}/{args.frames}  {times[-1] / n * 1e3:.3f} ms/frame"
-              f"  {'walk overflow' if integrator == 'bdpt_rgb' else 'overflow kills'} {ov}",
+              f"  {'walk overflow' if integrator in BDPT else 'overflow kills'} {ov}",
               flush=True)
         if fl.frame % args.snapshot_every == 0 or fl.frame == args.frames:
             film_mod.save_png(fl, args.out, exposure=cfg.exposure)

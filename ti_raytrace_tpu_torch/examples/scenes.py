@@ -1,8 +1,8 @@
 """Scene configs (twin of ti_raytrace_tpu/examples/scenes.py): the
-100k-triangle benchmark, the Veach MIS scene and the four path-traced
-scenes of the dense tracer (cornell_box, single_model, sky_dome,
-spectral_box); prism_rainbow is a ROADMAP 'to port' item.  Each `*_host`
-function builds the scene's host dict; each scene function returns
+100k-triangle benchmark, the Veach MIS scene, the four path-traced scenes
+of the dense tracer (cornell_box, single_model, sky_dome, spectral_box)
+and the prism dispersion demo under spectral BDPT (prism_rainbow).  Each
+`*_host` function builds the scene's host dict; each scene function returns
 (SceneData on `device`, ExampleConfig).  The schedules, groups and
 batches are the reference's, sized there for zero overflow kills (the
 occupancy they rest on belongs to the scene and the random stream); the
@@ -16,7 +16,12 @@ import numpy as np
 from ti_raytrace_tpu_torch.camera import CameraSpec, orbit_camera
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.io.assets import asset_path
-from ti_raytrace_tpu_torch.scene.build import MaterialRec, SceneBuilder, sphere_shape
+from ti_raytrace_tpu_torch.scene.build import (
+    MaterialRec,
+    SceneBuilder,
+    laser_shape,
+    sphere_shape,
+)
 
 _CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -29,8 +34,13 @@ class ExampleConfig:
     name: str
     integrator: str = "pt_rgb"  # the scene's own integrator (CLI --integrator overrides)
     scale_mult: float = 0.8     # camera distance = diag * scale_mult
+    fixed_scale: float | None = None  # camera distance as given (scale_mult unused)
+    fixed_target: tuple | None = None  # with fixed_scale: the look-at point (None: origin)
+    yaw: float = 0.0
+    pitch: float = 0.0
     exposure: float = 0.5
-    sky: dict = field(default_factory=dict)  # pt_spec.make_spectral_data parameters
+    # pt_spec.make_spectral_data parameters; bdpt_spec reads its emitter_scale
+    sky: dict = field(default_factory=dict)
     compaction: tuple | None = None  # wavefront compaction schedule
     group: int | None = None    # merged-group size of the production path
     pay_divisors: tuple | None = None  # fused flush+compact tail capacities
@@ -212,25 +222,63 @@ def spectral_box(device="cpu"):
         compaction=((3, 2), (6, 4), (8, 8)))
 
 
+def prism_rainbow_host() -> dict:
+    """Host dict of the dispersion demo: prism1.obj (3,151 triangles, no
+    smooth normals) under a sphere light and, aimed at the prism along -z,
+    a laser of radius 0.1, both of emission (500, 500, 500); spectral pack
+    rows."""
+    b = SceneBuilder()
+    b.add_obj(asset_path("model/prism1.obj"))
+    b.add_shape(sphere_shape([0.0, 20.0, 0.0], 5.0),
+                MaterialRec(C.MAT_LIGHT, color=[500.0] * 3))
+    b.add_shape(laser_shape([1.0, 0.0, 9.0], [0.0, 0.0, -1.0], 0.1),
+                MaterialRec(C.MAT_LIGHT, color=[500.0] * 3))
+    return b.build_host(spectral=True)
+
+
+def prism_rainbow(device="cpu"):
+    """Spectral BDPT (`bdpt_spec`) on the prism and the laser, seen from a
+    fixed distance of 10 towards the origin.  emitter_scale sqrt(3): both
+    lights are gray, and the scene's golden embodies the |Ke|_1 lamp scale
+    (as spectral_box's does).  The walk fronts shrink at depths 2, 3 and 4
+    (eye to N/1.7, N/5.5, N/10; light to N/1.6, N/2.4, N/3.9) and the
+    shadow batch is swept at 0.09 of its lanes: the reference's schedules,
+    sized there from the alive fractions of this scene (eye .53/.14/.07,
+    light .56/.37/.22; 6.8% of the shadow lanes active); the port reports
+    its own overflow."""
+    from ti_raytrace_tpu_torch.scene.data import device_scene
+
+    return device_scene(prism_rainbow_host(), device), ExampleConfig(
+        "prism_rainbow", "bdpt_spec", fixed_scale=10.0, fixed_target=(0.0, 0.0, 0.0),
+        sky=dict(emitter_scale=float(np.sqrt(3.0))),
+        bdpt_walk_compaction=(((2, 1.7), (3, 5.5), (4, 10.0)),
+                              ((2, 1.6), (3, 2.4), (4, 3.9))),
+        bdpt_shadow_cap=0.09)
+
+
 EXAMPLES = {
     "cornell_box": cornell_box,
     "single_model": single_model,
     "sky_dome": sky_dome,
     "spectral_box": spectral_box,
     "veach_bdpt": veach_bdpt,
+    "prism_rainbow": prism_rainbow,
     "benchmark_100k": benchmark_100k,
 }
 
 
 def framing_params(scene, cfg: ExampleConfig):
     """The example's framing rule as orbit-rig parameters (target, yaw,
-    pitch, scale): the scene box centre, seen along -z from diag *
-    scale_mult away."""
+    pitch, scale): the scene box centre seen from diag * scale_mult away,
+    or, with `fixed_scale`, `fixed_target` from that distance."""
+    if cfg.fixed_scale is not None:
+        target = np.asarray(cfg.fixed_target or (0.0, 0.0, 0.0))
+        return target, cfg.yaw, cfg.pitch, cfg.fixed_scale
     lo = scene.aabb_min.cpu().numpy()
     hi = scene.aabb_max.cpu().numpy()
     centre = 0.5 * (lo + hi)
     scale = float(np.linalg.norm(hi - lo)) * cfg.scale_mult
-    return centre, 0.0, 0.0, scale
+    return centre, cfg.yaw, cfg.pitch, scale
 
 
 def make_camera(scene, cfg: ExampleConfig, width: int, height: int):

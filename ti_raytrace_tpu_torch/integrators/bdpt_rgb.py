@@ -33,13 +33,20 @@ overflow is returned (the reference drops it in `_walk`) and, with a
 shadow cap, the live shadow lanes cut at capacity are added to it
 (render entry points take `return_overflow`); rays are generated once
 per sliced frame instead of once per slice (the same rays and keys); no
-jit.  The spectral variant (spec_ctx) is ROADMAP 'to port': spectral
-BDPT and prism.
+jit.
+
+The spectral variant (integrators/bdpt_spec.py) runs the same walks and
+connections with a `spec_ctx`: one wavelength per lane, betas and
+reflectances one row wide (the per-depth vertex rows stay three wide; the
+one row broadcasts into them), BK7 glass dispersed at the lane's
+wavelength, emitter power from the packed spectral rows, and the
+conversion to sRGB per lane before the splat and at the end of the frame.
+With `spec_ctx=None` every result is the RGB one, bit for bit.
 """
 
 import torch
 
-from ti_raytrace_tpu_torch.accel import trace, trace_shaded
+from ti_raytrace_tpu_torch.accel import trace, trace_capacity, trace_shaded
 from ti_raytrace_tpu_torch.bsdf.planar import disney_evaluate_pdf, disney_sample, glass_sample
 from ti_raytrace_tpu_torch.camera import CameraSpec, project, ray_directions, ray_origins
 from ti_raytrace_tpu_torch.core import constants as C
@@ -48,6 +55,7 @@ from ti_raytrace_tpu_torch.ops import planar as pv
 from ti_raytrace_tpu_torch.ops.shading import decode_hit
 from ti_raytrace_tpu_torch.scene.sample_planar import sample_li, sample_light
 from ti_raytrace_tpu_torch.utils.colorsp import srgb_to_lrgb
+from ti_raytrace_tpu_torch.utils.geometry import bk7_ior
 
 MAX_DEPTH = 5
 EYE_MAX_DEPTH = MAX_DEPTH + 2
@@ -98,14 +106,16 @@ def _empty_vertex(N, device):
     )
 
 
-def _walk_state(origin, direction, beta0, fpdf0, vertex0, max_depth):
+def _walk_state(origin, direction, beta0, fpdf0, vertex0, max_depth, spec_ctx=None):
     """Walk carry: per-depth vertex dicts + the ray front.  The front also
     carries the previous vertex's pos/normal and each lane's original lane
     id, so it can be compacted mid-walk: vertex writes then scatter back
-    to the original lane slots (`compacted` True)."""
+    to the original lane slots (`compacted` True).  A spectral walk's
+    front also carries each lane's wavelength and D65 value (`lam`,
+    `d65`), which shrink with it."""
     N = origin.shape[1]
     dev = origin.device
-    return {
+    st = {
         "verts": [vertex0] + [_empty_vertex(N, dev) for _ in range(max_depth - 1)],
         "count": torch.ones((N,), dtype=torch.int32, device=dev),
         "o": origin,
@@ -119,6 +129,10 @@ def _walk_state(origin, direction, beta0, fpdf0, vertex0, max_depth):
         "compacted": False,
         "n_full": N,
     }
+    if spec_ctx is not None:
+        st["lam"] = spec_ctx.lam
+        st["d65"] = spec_ctx.d65_val
+    return st
 
 
 def _walk_width(N: int, dv) -> int:
@@ -134,11 +148,17 @@ def _compact_walk_front(st, new_n: int):
     alive = st["alive"]
     overflow = torch.clamp(alive.sum() - new_n, min=0)
     sel = torch.sort((~alive).to(torch.int64), stable=True).indices[:new_n]
+    c = st["beta"].shape[0]  # 3, or 1 on a spectral walk
+    spectral = "lam" in st
     rows = torch.cat([st["o"], st["d"], st["beta"], st["pdf_fwd"][None],
-                      st["prev_pos"], st["prev_normal"]]).index_select(1, sel)
-    st["o"], st["d"], st["beta"] = rows[0:3], rows[3:6], rows[6:9]
-    st["pdf_fwd"] = rows[9]
-    st["prev_pos"], st["prev_normal"] = rows[10:13], rows[13:16]
+                      st["prev_pos"], st["prev_normal"]]
+                     + ([st["lam"][None], st["d65"][None]] if spectral else [])
+                     ).index_select(1, sel)
+    st["o"], st["d"], st["beta"] = rows[0:3], rows[3:6], rows[6:6 + c]
+    st["pdf_fwd"] = rows[6 + c]
+    st["prev_pos"], st["prev_normal"] = rows[7 + c:10 + c], rows[10 + c:13 + c]
+    if spectral:
+        st["lam"], st["d65"] = rows[13 + c], rows[14 + c]
     st["alive"] = alive.index_select(0, sel)
     st["lane"] = st["lane"].index_select(0, sel)
     st["compacted"] = True
@@ -153,12 +173,12 @@ def _scatter_drop(base, idx, upd):
 
 
 def _walk(scene, origin, direction, beta0, fpdf0, vertex0, max_depth, key,
-          is_light_path, corrected: bool = False, compaction=None):
+          is_light_path, corrected: bool = False, compaction=None, spec_ctx=None):
     """One subpath random walk.  compaction: optional ((depth, divisor),
     ...): before the trace at `depth` the front shrinks to width/divisor
     (alive first).  Returns (per-depth vertex dicts, per-lane vertex
     count, overflow device scalar)."""
-    st = _walk_state(origin, direction, beta0, fpdf0, vertex0, max_depth)
+    st = _walk_state(origin, direction, beta0, fpdf0, vertex0, max_depth, spec_ctx)
     N = origin.shape[1]
     sched = dict(compaction or ())
     overflow = torch.zeros((), dtype=torch.int64, device=origin.device)
@@ -167,19 +187,23 @@ def _walk(scene, origin, direction, beta0, fpdf0, vertex0, max_depth, key,
             overflow = overflow + _compact_walk_front(st, _walk_width(N, sched[depth]))
         o_t = pv.where(st["alive"], st["o"], torch.full_like(st["o"], PARK))
         traced = trace_shaded(scene, o_t, st["d"])
-        _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced)
+        _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced, spec_ctx)
     return st["verts"], st["count"], overflow
 
 
-def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced):
+def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced, spec_ctx=None):
     """One walk depth from this depth's hit record; updates st.  Runs at
     the front's width; a compacted front writes the depth's vertex
-    through one packed scatter back to the original lane slots."""
+    through one packed scatter back to the original lane slots.  A
+    spectral walk reads the wavelength rows of the front, not of the
+    full-width `spec_ctx` it was started from."""
     N = o_t.shape[1]
     verts, count = st["verts"], st["count"]
     d, beta, pdf_fwd, alive = st["d"], st["beta"], st["pdf_fwd"], st["alive"]
     compacted = st["compacted"]
     N_full = st["n_full"]
+    if spec_ctx is not None:
+        spec_ctx = spec_ctx._replace(lam=st["lam"], d65_val=st["d65"])
 
     u = rng.uniform(rng.fold_in(key, depth), (5, N), device=o_t.device)
 
@@ -187,7 +211,7 @@ def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced):
     hit = decode_hit(o_t, d, t, prim, uv_bary, attr)
     valid = hit.valid & alive
     fnormal = pv.faceforward(hit.normal, -d, hit.gnormal)
-    reflect = srgb_to_lrgb(hit.mat_color)
+    reflect = srgb_to_lrgb(hit.mat_color) if spec_ctx is None else spec_ctx.reflect_power(attr)
     is_light_mat = hit.mat_type == C.MAT_LIGHT
 
     prev_pos, prev_normal = st["prev_pos"], st["prev_normal"]
@@ -207,10 +231,14 @@ def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced):
         continue_mask = store
     else:
         # an emitter hit ends the eye walk with a light vertex whose beta
-        # folds the emission and |n.d|
+        # folds the emission and |n.d| (the spectral walk: the light power,
+        # without the cosine)
         store = valid
         lhit = valid & is_light_mat
-        light_beta = beta * hit.mat_color * torch.abs(pv.dot(hit.normal, d))[None]
+        if spec_ctx is None:
+            light_beta = beta * hit.mat_color * torch.abs(pv.dot(hit.normal, d))[None]
+        else:
+            light_beta = beta * spec_ctx.light_power_attr(attr)
         beta_v = pv.where(lhit, light_beta, beta * torch.abs(pv.dot(d, hit.normal))[None])
         vtype_v = torch.where(lhit, V_LIGHT, V_SURFACE).to(torch.int32)
         continue_mask = valid & ~is_light_mat
@@ -218,8 +246,10 @@ def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced):
 
     # this depth's vertex, written where `store`
     vt = verts[depth]
-    vecs = dict(pos=hit.pos, normal=hit.normal, snormal=fnormal, wo=d, reflect=reflect,
-                beta=beta_v)
+    # the vertex rows of reflect and beta are 3 wide: a spectral walk's one
+    # row broadcasts into them
+    vecs = dict(pos=hit.pos, normal=hit.normal, snormal=fnormal, wo=d,
+                reflect=reflect.expand(3, N), beta=beta_v.expand(3, N))
     scals = dict(fpdf=pdf_fwd * geo_fwd, metallic=hit.mat_p0, roughness=hit.mat_p1,
                  area=hit.area, delta=torch.where(is_glass, 1.0, 0.0))
     ints = dict(prim=prim, mat_type=hit.mat_type, mat_index=attr[30].to(torch.int32),
@@ -248,7 +278,9 @@ def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced):
         count = n[len(ints)]
 
     # ---- sample the continuation
-    g_dir, g_forb = glass_sample(u[0], d, hit.normal, hit.mat_p0)
+    # spectral: BK7 glass dispersed at the lane's wavelength
+    glass_ior = hit.mat_p0 if spec_ctx is None else bk7_ior(spec_ctx.lam)
+    g_dir, g_forb = glass_sample(u[0], d, hit.normal, glass_ior)
     d_dir = disney_sample(u[0:3], d, fnormal, hit.mat_p0, hit.mat_p1)
     d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1,
                                         true_pdf=corrected)
@@ -294,27 +326,33 @@ def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced):
     st["prev_normal"] = pv.where(store, hit.normal, zero3)
 
 
-def _eye_vertex0(o, d):
+def _eye_vertex0(o, d, channels: int = 3):
     N = o.shape[1]
     v0 = _empty_vertex(N, o.device)
     v0["pos"] = o
     v0["normal"] = d  # the reference stores the ray direction here
-    v0["beta"] = torch.ones((3, N), dtype=torch.float32, device=o.device)
+    v0["beta"] = torch.ones((channels, N), dtype=torch.float32, device=o.device)
     v0["fpdf"] = torch.ones((N,), dtype=torch.float32, device=o.device)
     v0["vtype"] = torch.full((N,), V_LENS, dtype=torch.int32, device=o.device)
     return v0
 
 
+def _channels(spec_ctx) -> int:
+    """Rows of a walk's beta: 3 (RGB), or 1 at a single wavelength."""
+    return 3 if spec_ctx is None else 1
+
+
 def build_eye_path_rays(scene, o, d, key, eye_depth: int = EYE_MAX_DEPTH, fpdf0=None,
-                        corrected: bool = False):
+                        corrected: bool = False, spec_ctx=None):
     """Eye subpath walk from explicit planar rays.  fpdf0: per-lane camera
     direction pdf (the reference's weights take it as 1; the corrected
     estimator passes the pinhole pdf).  Returns (verts, count, overflow)."""
     N = o.shape[1]
+    c = _channels(spec_ctx)
     ones = torch.ones((N,), dtype=torch.float32, device=o.device)
-    return _walk(scene, o, d, torch.ones((3, N), dtype=torch.float32, device=o.device),
-                 ones if fpdf0 is None else fpdf0, _eye_vertex0(o, d), eye_depth, key,
-                 is_light_path=False, corrected=corrected)
+    return _walk(scene, o, d, torch.ones((c, N), dtype=torch.float32, device=o.device),
+                 ones if fpdf0 is None else fpdf0, _eye_vertex0(o, d, c), eye_depth, key,
+                 is_light_path=False, corrected=corrected, spec_ctx=spec_ctx)
 
 
 def _camera_dir_pdf(spec, cam, d):
@@ -331,15 +369,15 @@ def _camera_rays(spec, cam, frame, k_cam):
 
 
 def build_eye_path(scene, spec, cam, frame, key, eye_depth: int = EYE_MAX_DEPTH,
-                   corrected: bool = False):
+                   corrected: bool = False, spec_ctx=None):
     k_cam, k_walk = rng.split(key)
     o, d = _camera_rays(spec, cam, frame, k_cam)
     fpdf0 = _camera_dir_pdf(spec, cam, d) if corrected else None
     return build_eye_path_rays(scene, o, d, k_walk, eye_depth, fpdf0=fpdf0,
-                               corrected=corrected)
+                               corrected=corrected, spec_ctx=spec_ctx)
 
 
-def _light_init(scene, N, k_sample, corrected: bool = False):
+def _light_init(scene, N, k_sample, corrected: bool = False, spec_ctx=None):
     """Light subpath start: sampled emitter vertex + first ray.
     Returns (o, d, beta0, dir_pdf, v0)."""
     dev = scene.device
@@ -349,7 +387,8 @@ def _light_init(scene, N, k_sample, corrected: bool = False):
     v0["pos"] = ls["pos"]
     v0["normal"] = ls["normal"]
     v0["snormal"] = ls["normal"]
-    v0["beta"] = ls["emission"] / torch.clamp(light_pdf, min=1e-12)[None]
+    emission = ls["emission"] if spec_ctx is None else spec_ctx.light_power_sample(ls)
+    v0["beta"] = emission / torch.clamp(light_pdf, min=1e-12)[None]
     v0["fpdf"] = light_pdf
     v0["wo"] = ls["direction"]
     v0["vtype"] = torch.full((N,), V_LIGHT, dtype=torch.int32, device=dev)
@@ -365,18 +404,18 @@ def _light_init(scene, N, k_sample, corrected: bool = False):
 
 
 def build_light_path(scene, N, key, light_depth: int = LIGHT_MAX_DEPTH,
-                     corrected: bool = False):
+                     corrected: bool = False, spec_ctx=None):
     """Returns (verts, count, overflow)."""
     k_sample, k_walk = rng.split(key)
-    o, d, beta0, dir_pdf, v0 = _light_init(scene, N, k_sample, corrected)
+    o, d, beta0, dir_pdf, v0 = _light_init(scene, N, k_sample, corrected, spec_ctx)
     return _walk(scene, o, d, beta0, dir_pdf, v0, light_depth, k_walk,
-                 is_light_path=True, corrected=corrected)
+                 is_light_path=True, corrected=corrected, spec_ctx=spec_ctx)
 
 
 def build_subpaths(scene, o, d, k_eye, k_light, eye_depth: int = EYE_MAX_DEPTH,
                    light_depth: int = LIGHT_MAX_DEPTH, fpdf0=None,
                    corrected: bool = False, walk_compaction=None,
-                   return_overflow: bool = False):
+                   return_overflow: bool = False, spec_ctx=None):
     """Eye + light subpaths with each depth's two walk traces fused into
     one wavefront (per-lane hits do not depend on the batch, so the
     result equals the separate builders' with the same keys).  Returns
@@ -392,11 +431,12 @@ def build_subpaths(scene, o, d, k_eye, k_light, eye_depth: int = EYE_MAX_DEPTH,
 
     if fpdf0 is None:
         fpdf0 = torch.ones((N,), dtype=torch.float32, device=dev)
-    st_e = _walk_state(o, d, torch.ones((3, N), dtype=torch.float32, device=dev), fpdf0,
-                       _eye_vertex0(o, d), eye_depth)
+    c = _channels(spec_ctx)
+    st_e = _walk_state(o, d, torch.ones((c, N), dtype=torch.float32, device=dev), fpdf0,
+                       _eye_vertex0(o, d, c), eye_depth, spec_ctx)
     k_sample, k_lwalk = rng.split(k_light)
-    lo, ld, lbeta0, ldir_pdf, v0l = _light_init(scene, N, k_sample, corrected)
-    st_l = _walk_state(lo, ld, lbeta0, ldir_pdf, v0l, light_depth)
+    lo, ld, lbeta0, ldir_pdf, v0l = _light_init(scene, N, k_sample, corrected, spec_ctx)
+    st_l = _walk_state(lo, ld, lbeta0, ldir_pdf, v0l, light_depth, spec_ctx)
 
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(1, max(eye_depth, light_depth)):
@@ -417,7 +457,7 @@ def build_subpaths(scene, o, d, k_eye, k_light, eye_depth: int = EYE_MAX_DEPTH,
             w = o_f.shape[1]
             traced = tuple(x[..., start:start + w] for x in tt)
             start += w
-            _walk_step(scene, st, depth, k, light_path, corrected, o_f, traced)
+            _walk_step(scene, st, depth, k, light_path, corrected, o_f, traced, spec_ctx)
 
     out = (st_e["verts"], st_e["count"], st_l["verts"], st_l["count"])
     return out + (overflow,) if return_overflow else out
@@ -575,22 +615,27 @@ def _splat_add(flat, pixels, values):
 
 def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
                  corrected: bool = False, max_depth: int = MAX_DEPTH,
-                 unweighted: bool = False, shadow_cap=None):
+                 unweighted: bool = False, shadow_cap=None, spec_ctx=None, strategies=None):
     """All (e, l) strategies -> (radiance (3, N), splat (W, H, 3), kills).
+
+    spec_ctx: the frame's full-width spectral context (never a compacted
+    front's): radiance is then the scalar power, still to be converted by
+    the caller (`spec_ctx.to_rgb`), while the splat is converted here,
+    lane by lane, before it lands on another pixel.  strategies: optional
+    host predicate f(e, l) -> bool choosing the strategies to evaluate (a
+    diagnostic hook of tools/bdpt_decompose.py).
 
     corrected=False keeps the reference's contribution formulas
     (connection BSDFs divided by their pdf, cosine-folded betas, no
     pinhole importance on the splat), which its goldens embody;
     corrected=True is the standard estimator.  unweighted: every MIS
     weight 1.  shadow_cap: None -> SHADOW_CAP; <= 0 -> no cap; else the
-    fraction of the shadow batch the kernel runs on.  kills: active
+    fraction of the shadow batch the tracer runs on.  kills: active
     shadow lanes cut at that capacity (a device scalar; the reference
     reports none)."""
-    from ti_raytrace_tpu_torch.ops.cluster_trace import SMALL_WAVEFRONT, capacity_lanes
-
     N = eye[0]["pos"].shape[1]
     dev = eye[0]["pos"].device
-    radiance = torch.zeros((3, N), dtype=torch.float32, device=dev)
+    radiance = torch.zeros((_channels(spec_ctx), N), dtype=torch.float32, device=dev)
     n_lights = float(scene.n_lights)
     kills = torch.zeros((), dtype=torch.int64, device=dev)
 
@@ -599,6 +644,7 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
         for e in range(1, len(eye) + 1)
         for l in range(0, len(light) + 1)
         if not ((l == 1 and e == 1) or l + e - 2 < 0 or l + e - 2 > max_depth)
+        and (strategies is None or strategies(e, l))
     ]
 
     # pass 1: every strategy's shadow ray, bounded by its target distance,
@@ -611,9 +657,9 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
         sel_all = torch.cat(req_sel) if sc is not None else None
         t_all, prim_all = trace(scene, torch.cat(req_o, 1), torch.cat(req_d, 1),
                                 tmax=torch.cat(req_tmax), active=sel_all, cap_frac=sc)
-        n_all = len(req_tags) * N
-        if sc is not None and n_all > SMALL_WAVEFRONT:
-            kills = torch.clamp(sel_all.sum() - capacity_lanes(n_all, sc), min=0)
+        cap = trace_capacity(scene, len(req_tags) * N, sc) if sc is not None else None
+        if cap is not None:
+            kills = torch.clamp(sel_all.sum() - cap, min=0)
         for i, tag in enumerate(req_tags):
             occ[tag] = (t_all[i * N:(i + 1) * N], prim_all[i * N:(i + 1) * N])
 
@@ -705,7 +751,10 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
                         lm["vtype"] == V_SURFACE, torch.abs(pv.dot(lv["normal"], wo2)), 1.0)
             mw = torch.ones((N,), dtype=torch.float32, device=dev) if unweighted \
                 else _mis_weight(eye, light, e, l, ov)
-            val = (contrib * mw[None]).T  # (N, 3)
+            val = contrib * mw[None]
+            if spec_ctx is not None:
+                val = spec_ctx.to_rgb(val)
+            val = val.T  # (N, 3)
             pxc = torch.clamp(px, 0, spec.width - 1).to(torch.int64)
             pyc = torch.clamp(py, 0, spec.height - 1).to(torch.int64)
             splat_px.append(torch.where(sel, pxc * spec.height + pyc, dump))
@@ -729,9 +778,10 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
             g = torch.abs(ndl_e * ndl_l) / torch.clamp(t_sh * t_sh, min=1e-12)
             beta_e = ev["beta"] / _cos_in(ev)[None] if corrected else ev["beta"]
             brdf_term = brdf if corrected else brdf / torch.clamp(pdf, min=1e-12)
+            emission = ls["emission"] if spec_ctx is None else spec_ctx.light_power_sample(ls)
             contrib = torch.where(
                 sel[None],
-                g[None] * beta_e * brdf_term[None] * ev["reflect"] * ls["emission"]
+                g[None] * beta_e * brdf_term[None] * ev["reflect"] * emission
                 / torch.clamp(ls["choice_pdf"], min=1e-12)[None],
                 0.0)
             # overrides: the sampled light is light vertex 0 now
@@ -889,11 +939,11 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
 
 def render_paths(scene, spec: CameraSpec, cam, frame, key, corrected: bool = False,
                  max_depth: int = MAX_DEPTH, walk_compaction=None, shadow_cap=None,
-                 return_overflow: bool = False):
+                 return_overflow: bool = False, spec_ctx=None):
     """One frame's subpaths + connections -> (W, H, 3) radiance (and the
     overflow, a device scalar, with return_overflow).  max_depth caps the
     strategy depth; the walks run max_depth + 2 (eye) and + 1 (light)
-    vertices."""
+    vertices.  spec_ctx: the frame's spectral context (bdpt_spec)."""
     k_eye, k_light, k_conn = rng.split(key, 3)
     k_cam, k_ewalk = rng.split(k_eye)
     o, d = _camera_rays(spec, cam, frame, k_cam)
@@ -901,10 +951,12 @@ def render_paths(scene, spec: CameraSpec, cam, frame, key, corrected: bool = Fal
     eye, eye_count, light, light_count, overflow = build_subpaths(
         scene, o, d, k_ewalk, k_light, eye_depth=max_depth + 2, light_depth=max_depth + 1,
         fpdf0=fpdf0, corrected=corrected, walk_compaction=walk_compaction,
-        return_overflow=True)
+        return_overflow=True, spec_ctx=spec_ctx)
     radiance, splat, kills = _connections(
         scene, spec, cam, eye, eye_count, light, light_count, k_conn, corrected=corrected,
-        max_depth=max_depth, shadow_cap=shadow_cap)
+        max_depth=max_depth, shadow_cap=shadow_cap, spec_ctx=spec_ctx)
+    if spec_ctx is not None:
+        radiance = spec_ctx.to_rgb(radiance)
     img = radiance.T.reshape(spec.width, spec.height, 3) + splat
     return (img, overflow + kills) if return_overflow else img
 

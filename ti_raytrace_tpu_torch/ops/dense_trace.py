@@ -153,6 +153,13 @@ def trace_planar(scene, o, d):
         return _sweep(scene, o, d)
 
 
+def capacity_lanes(N: int, cap_frac: float) -> int:
+    """Lanes a capped sweep of an N-lane wavefront runs on: cap_frac of N
+    rounded up to 128, at least 128, at most N.  Callers count capacity
+    kills with the same rounding."""
+    return min(N, max(128, (int(N * float(cap_frac)) + 127) // 128 * 128))
+
+
 def trace_planar_capped(scene, o, d, active, cap_frac: float):
     """Closest hit with active-lane packing: the sweep costs N x P for
     every lane, so a mostly parked wavefront (BDPT's fused shadow batch)
@@ -165,8 +172,7 @@ def trace_planar_capped(scene, o, d, active, cap_frac: float):
     behind the active ones carry their ray's real hit, the others a miss;
     callers read only the lanes they marked active."""
     N = o.shape[1]
-    W = int(N * float(cap_frac))
-    W = min(N, max(128, (W + 127) // 128 * 128))
+    W = capacity_lanes(N, cap_frac)
     sel = torch.sort((~active).to(torch.int64), stable=True).indices[:W]
     t_c, prim_c = trace_planar(scene, o.index_select(1, sel), d.index_select(1, sel))
     t = torch.full((N,), C.INF, dtype=torch.float32, device=o.device)

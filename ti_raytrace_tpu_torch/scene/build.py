@@ -44,6 +44,17 @@ def sphere_shape(pos, radius):
     return ShapeRec(C.SHAPE_SPHERE, pos, [radius])
 
 
+def spot_shape(pos, normal, x1, x2, scale):
+    """A spot emitter at pos along normal: full power inside the half-angle
+    x1, fading to zero at x2; `scale` is its projection distance."""
+    return ShapeRec(C.SHAPE_SPOT, pos, [x1, x2, scale] + list(normal))
+
+
+def laser_shape(pos, normal, radius):
+    """A collimated beam of the given radius from pos along normal."""
+    return ShapeRec(C.SHAPE_LASER, pos, [radius, 0.0, 0.0] + list(normal))
+
+
 class SceneBuilder:
     def __init__(self):
         self.materials: list[MaterialRec] = []

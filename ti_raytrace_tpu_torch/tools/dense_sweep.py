@@ -1,4 +1,4 @@
-"""The dense sweep on the card, and the four paths that ride on it.
+"""The dense sweep on the card, and the five paths that ride on it.
 
     python -m ti_raytrace_tpu_torch.tools.dense_sweep [--reps 5] [--frames 4]
         [--out dense.json]
@@ -15,15 +15,25 @@ at the FP32 peak.  sphere.obj holds each of its 760 triangles three
 times, so most hits are exact t-ties between coincident copies, where the
 dense sweep reports the lowest index and the cluster tracer the first in
 its sweep order: differing prims are counted in all and apart from such
-copies.
+copies.  The same for the two largest wavefronts of one prism_rainbow
+frame (spectral BDPT, unsliced), recorded at the integrator's calls of the
+tracer: the fused depth-1 eye + light walk (2 x 512^2 lanes) and the
+shadow batch of all 20 strategies packed to its capacity (0.09 of 20 x
+512^2 lanes, as `trace_planar_capped` packs it), which carries a per-lane
+`tmax`: the cluster tracer honours it and the dense sweep ignores it, so
+that wavefront is compared by what its caller reads, the hits within the
+bound.
 
-Part 2, the paths.  For cornell_box, single_model, sky_dome and
-spectral_box at 512^2, rendered as the CLI renders them (`render_frames`):
-host ms/frame over `--frames` frames (single_model: whole groups of 16)
-after a warm-up, the overflow kills, and from torch.profiler over one
-more call the device ms/frame and the share of it spent inside
-`dense_trace._sweep` (the kernels launched inside that record_function
-range).  chip_smoke.py uses the recorder, the comparison and
+Part 2, the paths.  For cornell_box, single_model, sky_dome, spectral_box
+and prism_rainbow at 512^2, rendered as the CLI renders them
+(`render_frames`): host ms/frame over `--frames` frames (single_model:
+whole groups of 16) after a warm-up, the overflow kills, the peak device
+memory, and from torch.profiler over one more call (one frame of BDPT)
+the device ms/frame and the share of it spent inside `dense_trace._sweep`
+(the kernels launched inside that record_function range).  prism_rainbow
+is also rendered uncapped (the shadow cap's effect) and, with
+`cluster_tracer()`, a switch local to this tool, through the cluster
+tracer.  chip_smoke.py uses the recorders, the comparison and
 `render_frames`.  Needs a CUDA card.
 """
 
@@ -40,7 +50,7 @@ from ti_raytrace_tpu_torch.ops import dense_trace as dt
 from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_FP32, time_ms
 
 SIZE = 512
-SCENES = ("cornell_box", "single_model", "sky_dome", "spectral_box")
+SCENES = ("cornell_box", "single_model", "sky_dome", "spectral_box", "prism_rainbow")
 SWEEP_RANGE = "dense_trace._sweep"  # the record_function range of ops/dense_trace.py
 MT_OPS = 60  # FP32 operations of one ray-triangle test (tools/kernel_wavefronts.py)
 T_RTOL = 1e-5
@@ -98,11 +108,66 @@ def group_wavefronts(scene, cfg, spec, cam, fl):
     return waves, fl, kills
 
 
-def compare(scene, o, d, shared_origin, reps: int) -> dict:
+@contextlib.contextmanager
+def cluster_tracer():
+    """Send every scene to the cluster tracer inside the block, whatever
+    its primitive count (every scene carries its cluster tables): a switch
+    for measurements, local to this tool."""
+    import ti_raytrace_tpu_torch.accel as accel
+
+    real = accel.DENSE_MAX_PRIMS
+    accel.DENSE_MAX_PRIMS = 0
+    try:
+        yield
+    finally:
+        accel.DENSE_MAX_PRIMS = real
+
+
+def prism_wavefronts(scene, cfg, spec, cam, frame: int = 1, seed: int = 2):
+    """The two largest wavefronts of one unsliced prism_rainbow frame,
+    recorded at bdpt_rgb's calls of the tracer: [(name, o, d, tmax or
+    None)] of the fused depth-1 walk and of the shadow batch packed to its
+    capacity (alive first, as `trace_planar_capped` packs it), and the
+    number of active lanes in that prefix."""
+    from ti_raytrace_tpu_torch.core import rng
+    from ti_raytrace_tpu_torch.examples.run import spectral_data
+    from ti_raytrace_tpu_torch.integrators import bdpt_rgb
+
+    walks, shadows = [], []
+    real_shaded, real_trace = bdpt_rgb.trace_shaded, bdpt_rgb.trace
+
+    def rec_shaded(sc, o, d, *a, **kw):
+        walks.append((o, d))
+        return real_shaded(sc, o, d, *a, **kw)
+
+    def rec_trace(sc, o, d, *a, **kw):
+        shadows.append((o, d, kw["tmax"], kw["active"], kw["cap_frac"]))
+        return real_trace(sc, o, d, *a, **kw)
+
+    bdpt_rgb.trace_shaded, bdpt_rgb.trace = rec_shaded, rec_trace
+    try:
+        spectral_data(cfg, cfg.integrator, scene.device)(scene, spec, cam, frame,
+                                                         rng.PRNGKey(seed))
+    finally:
+        bdpt_rgb.trace_shaded, bdpt_rgb.trace = real_shaded, real_trace
+    o, d, tmax, active, cap_frac = shadows[0]
+    sel = torch.sort((~active).to(torch.int64), stable=True).indices[
+        :dt.capacity_lanes(o.shape[1], cap_frac)]
+    packed = (o.index_select(1, sel), d.index_select(1, sel), tmax.index_select(0, sel))
+    return ([("fused depth-1 walk", walks[0][0], walks[0][1], None),
+             ("capped shadow batch (tmax)",) + packed],
+            int(active.index_select(0, sel).sum()))
+
+
+def compare(scene, o, d, shared_origin, reps: int, tmax=None) -> dict:
     """The dense sweep and the cluster tracer on one wavefront of a scene
     that has both tables: agreement and times.  The camera wavefront goes
     to the cluster tracer as the path tracer would send it (shared origin,
-    unsorted), any other through its sorted mode."""
+    unsorted), any other through its sorted mode.  tmax: the wavefront's
+    per-lane bound, which only the cluster tracer takes; the hits compared
+    are then the dense sweep's within the bound (those its caller reads),
+    and a lane whose hit lies within T_RTOL of its bound may fall on
+    either side (`at_bound`, counted)."""
     from ti_raytrace_tpu_torch.ops import cluster_trace as ct
 
     if shared_origin is not None:
@@ -111,9 +176,16 @@ def compare(scene, o, d, shared_origin, reps: int) -> dict:
         kw = dict(sort_rays=True, sort_small=True)
     ms_dense, (t_d, p_d, _, _) = time_ms(lambda: dt.trace_shaded(scene, o, d), reps)
     ms_cluster, (t_c, p_c, _, _) = time_ms(
-        lambda: ct.trace_clustered(scene, o, d, want_attr=True, **kw), reps)
-    args, _ = ct.kernel_inputs(scene, o, d, kw["sort_rays"], shared_origin)
+        lambda: ct.trace_clustered(scene, o, d, want_attr=True, tmax=tmax, **kw), reps)
+    args, _ = ct.kernel_inputs(scene, o, d, kw["sort_rays"], shared_origin, tmax=tmax)
     ms_kernel, _ = time_ms(lambda: ct.KERNEL(*args), reps)
+    at_bound = 0
+    if tmax is not None:
+        near = (p_d >= 0) & ((t_d - tmax).abs() <= T_RTOL * tmax)
+        at_bound = int(near.sum())
+        beyond = (t_d >= tmax) | near
+        p_d = torch.where(beyond, -1, p_d)
+        p_c = torch.where(near, -1, p_c)
     hit = p_d >= 0
     n_hit = int(hit.sum())
     dt_abs = torch.where(hit & (p_c >= 0), (t_c - t_d).abs(), 0.0)
@@ -133,7 +205,7 @@ def compare(scene, o, d, shared_origin, reps: int) -> dict:
         apart_mismatch_frac=int(apart.sum()) / max(n_hit, 1),
         ties_ok=bool(((t_c - t_d).abs()[mism] <= T_RTOL * t_d.abs()[mism]).all()),
         dense_ms=ms_dense, cluster_ms=ms_cluster, cluster_kernel_ms=ms_kernel,
-        bound_ms=bound, share=bound / ms_dense,
+        bound_ms=bound, share=bound / ms_dense, at_bound=at_bound,
     )
 
 
@@ -179,6 +251,68 @@ def profile_call(render, device) -> dict:
                 sweep_device_ms=sweep_us / 1e3, sweeps=sweeps)
 
 
+def _wavefront_line(name, wname, row):
+    print(f"{name} {wname}: {row['lanes']} lanes x {row['prims']} prims; dense "
+          f"{row['dense_ms']:.3f} ms, cluster tracer {row['cluster_ms']:.3f} ms "
+          f"(kernel {row['cluster_kernel_ms']:.4f} ms), bound "
+          f"{row['bound_ms']:.4f} ms (share {row['share']:.4f}); misses equal="
+          f"{row['misses_equal']}, max|dt| {row['max_abs_dt']:.3e} "
+          f"ok={row['t_ok']}, prim mismatch {row['prim_mismatch_frac']:.2e} of "
+          f"hits ({row['apart_mismatch_frac']:.2e} not between coincident copies), "
+          f"{row['at_bound']} lanes at their bound", flush=True)
+
+
+def timed_frames(scene, cfg, spec, cam, fl, frames: int, sdata):
+    """`frames` frames into `fl` between two synchronizes: (film', overflow,
+    host ms/frame, peak device memory in bytes over the call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fl, ov = render_frames(scene, cfg, spec, cam, fl, frames, sdata)
+    torch.cuda.synchronize()
+    return (fl, ov, (time.perf_counter() - t0) / frames * 1e3,
+            torch.cuda.max_memory_allocated())
+
+
+def prism_variants(scene, cfg, spec, cam, frames: int) -> dict:
+    """prism_rainbow's frame rate beside the production path's: without
+    the shadow cap, and through the cluster tracer (`cluster_tracer`), each
+    after a warm-up frame, with one frame's image held against the
+    production path's from the same film state."""
+    import dataclasses
+
+    from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.run import spectral_data
+
+    def one_frame(c, sd):
+        fl = film_mod.new_film(SIZE, SIZE, seed=4, device=scene.device)
+        return render_frames(scene, c, spec, cam, fl, 1, sd)[0].hdr
+
+    sdata = spectral_data(cfg, cfg.integrator, scene.device)
+    base = one_frame(cfg, sdata)
+    uncapped = dataclasses.replace(cfg, bdpt_shadow_cap=None)
+    out = {}
+    for name, c, ctx in (("uncapped", uncapped, contextlib.nullcontext()),
+                         ("cluster_tracer", cfg, cluster_tracer())):
+        sd = spectral_data(c, c.integrator, scene.device)
+        with ctx:
+            img = one_frame(c, sd)  # the warm-up too
+            fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
+            fl, ov, ms, peak = timed_frames(scene, c, spec, cam, fl, frames, sd)
+        out[name] = dict(ms_per_frame=ms, overflow=ov, peak_bytes=peak,
+                         frame_bit_equal=bool(torch.equal(img, base)),
+                         frame_sum=float(img.double().sum()),
+                         base_sum=float(base.double().sum()),
+                         pixels_close=float(torch.isclose(img, base, rtol=1e-3, atol=1e-6)
+                                            .all(dim=-1).float().mean()))
+        print(f"prism_rainbow {name}: {ms:.3f} ms/frame over {frames} frames, overflow {ov}, "
+              f"peak {peak / 2 ** 20:.1f} MiB; one frame against the production path's: "
+              f"bit-equal={out[name]['frame_bit_equal']}, sums {out[name]['frame_sum']:.6f} vs "
+              f"{out[name]['base_sum']:.6f}, pixels within rtol 1e-3 "
+              f"{out[name]['pixels_close']:.4f}", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -188,7 +322,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("dense_sweep: needs a CUDA card")
     from ti_raytrace_tpu_torch import film as film_mod
-    from ti_raytrace_tpu_torch.examples.run import spectral_data
+    from ti_raytrace_tpu_torch.examples.run import BDPT, spectral_data
     from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
 
     device = torch.device("cuda")
@@ -208,35 +342,39 @@ def main(argv=None):
             for wname, o, d, origin in waves:
                 row = dict(scene=name, wavefront=wname, **compare(scene, o, d, origin, a.reps))
                 rows.append(row)
-                print(f"{name} {wname}: {row['lanes']} lanes x {row['prims']} prims; dense "
-                      f"{row['dense_ms']:.3f} ms, cluster tracer {row['cluster_ms']:.3f} ms "
-                      f"(kernel {row['cluster_kernel_ms']:.4f} ms), bound "
-                      f"{row['bound_ms']:.4f} ms (share {row['share']:.4f}); misses equal="
-                      f"{row['misses_equal']}, max|dt| {row['max_abs_dt']:.3e} "
-                      f"ok={row['t_ok']}, prim mismatch {row['prim_mismatch_frac']:.2e} of "
-                      f"hits ({row['apart_mismatch_frac']:.2e} not between coincident copies)",
-                      flush=True)
+                _wavefront_line(name, wname, row)
             del waves
         else:
             fl, kills = render_frames(scene, cfg, spec, cam, fl, frames, sdata)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fl, ov = render_frames(scene, cfg, spec, cam, fl, frames, sdata)
-        torch.cuda.synchronize()
-        ms_frame = (time.perf_counter() - t0) / frames * 1e3
-        prof = profile_call(lambda: render_frames(scene, cfg, spec, cam, fl, frames, sdata),
-                            device)
+        if name == "prism_rainbow":
+            waves, n_active = prism_wavefronts(scene, cfg, spec, cam)
+            for wname, o, d, tmax in waves:
+                row = dict(scene=name, wavefront=wname,
+                           **compare(scene, o, d, None, a.reps, tmax=tmax))
+                rows.append(row)
+                _wavefront_line(name, wname, row)
+            print(f"{name}: {n_active} of the packed shadow batch's lanes are active",
+                  flush=True)
+            del waves
+        fl, ov, ms_frame, peak = timed_frames(scene, cfg, spec, cam, fl, frames, sdata)
+        # a BDPT frame is ~80,000 torch calls: one frame under the profiler
+        prof_frames = 1 if cfg.integrator in BDPT else frames
+        prof = profile_call(
+            lambda: render_frames(scene, cfg, spec, cam, fl, prof_frames, sdata), device)
         path = dict(scene=name, integrator=cfg.integrator, prims=scene.n_prims, frames=frames,
-                    ms_per_frame=ms_frame, overflow_kills=kills + ov,
-                    device_ms_per_frame=prof["device_ms"] / frames,
-                    sweep_device_ms_per_frame=prof["sweep_device_ms"] / frames,
-                    sweeps_per_frame=prof["sweeps"] / frames,
+                    ms_per_frame=ms_frame, overflow_kills=kills + ov, peak_bytes=peak,
+                    device_ms_per_frame=prof["device_ms"] / prof_frames,
+                    sweep_device_ms_per_frame=prof["sweep_device_ms"] / prof_frames,
+                    sweeps_per_frame=prof["sweeps"] / prof_frames,
                     sweep_share=prof["sweep_device_ms"] / max(prof["device_ms"], 1e-9),
                     busy_share=prof["device_ms"] / prof["profiled_wall_ms"],
                     hdr_mean=float(fl.hdr.mean()))
+        if name == "prism_rainbow":
+            path["variants"] = prism_variants(scene, cfg, spec, cam, frames)
         paths.append(path)
         print(f"{name} ({cfg.integrator}, {scene.n_prims} prims): {ms_frame:.3f} ms/frame "
-              f"over {frames} frames, overflow kills {path['overflow_kills']}; device "
+              f"over {frames} frames, overflow kills {path['overflow_kills']}, peak "
+              f"{peak / 2 ** 20:.1f} MiB; device "
               f"{path['device_ms_per_frame']:.3f} ms/frame (busy {path['busy_share']:.3f} of "
               f"the profiled wall), of it {path['sweep_device_ms_per_frame']:.3f} ms in "
               f"{path['sweeps_per_frame']:g} sweeps (share {path['sweep_share']:.3f})",

@@ -9,8 +9,7 @@ the reference's committed PNG in 8-bit-normalized space and checks it
 against the bound recorded in the JAX package's
 `ti_raytrace_tpu/tools/golden_bounds.json` (read as a file: the port does
 not import that package).  Exit 1 on a regression.  Targets: cornell_box,
-sky_dome, spectral_box, veach_bdpt, veach_pt; prism_rainbow raises
-NotImplementedError naming its ROADMAP item.
+sky_dome, spectral_box, veach_bdpt, veach_pt, prism_rainbow.
 """
 
 import argparse
@@ -39,8 +38,6 @@ TARGETS = {
     "prism_rainbow": ("prism_rainbow", None, "image/rainbow-far.png", 64),
 }
 
-_UNPORTED = {"prism_rainbow": "spectral BDPT and prism"}
-
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
@@ -52,19 +49,20 @@ def render_scene(name: str, frames: int, size: int, integrator, device) -> tuple
     scene's own integrator unless `integrator` overrides it, with the
     scene's compaction schedule; BDPT renders as the CLI does
     (render_frame_sliced in 2 slices, the scene's walk compaction and
-    shadow cap), the spectral path tracer with the scene's sky and
+    shadow cap), the spectral BDPT unsliced with them and the scene's
+    emitter scale, the spectral path tracer with the scene's sky and
     emitter scale."""
     from ti_raytrace_tpu_torch import film as film_mod
-    from ti_raytrace_tpu_torch.examples.run import render_batch, spectral_data
+    from ti_raytrace_tpu_torch.examples.run import BDPT, render_batch, spectral_data
     from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
 
     scene, cfg = EXAMPLES[name](device)
     integrator = integrator or cfg.integrator
-    if integrator not in ("pt_rgb", "pt_spec", "bdpt_rgb"):
-        raise NotImplementedError(f"integrator {integrator!r}: ROADMAP 'to port'")
+    if integrator not in ("pt_rgb", "pt_spec") + BDPT:
+        raise ValueError(f"the golden gate renders no {integrator!r} image")
     spec, cam = make_camera(scene, cfg, size, size)
     sdata = spectral_data(cfg, integrator, device)
-    batch = 4 if integrator == "bdpt_rgb" else 8
+    batch = 4 if integrator in BDPT else 8
     fl = film_mod.new_film(size, size, device=device)
     t0 = time.perf_counter()
     while fl.frame < frames:
@@ -107,9 +105,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None, help="also write the tone-mapped render here")
     args = ap.parse_args(argv)
-    if args.scene in _UNPORTED:
-        raise NotImplementedError(f"golden target {args.scene!r} is outside the ported "
-                                  f"slice (ROADMAP 'to port': {_UNPORTED[args.scene]})")
 
     device = torch.device(args.device)
     scene_name, integrator, rel, frames = TARGETS[args.scene]

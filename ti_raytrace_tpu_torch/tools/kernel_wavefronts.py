@@ -12,8 +12,12 @@ and the tmax shadow batch of slice 0), then times the kernel on each with
 CUDA events (one warm-up launch, then `--reps` launches), profiles one
 more such group or frame of each path with torch.profiler for the
 kernel's share of the path's device time, and prints one line per
-wavefront and per path and a JSON object.  chip_smoke.py uses the
-recorders and the work count (`bound`).  Needs a CUDA card.
+wavefront and per path and a JSON object.  Last, the kernel's time on the
+two largest wavefronts of a prism_rainbow frame (`tools/dense_sweep.
+prism_wavefronts`: the fused depth-1 walk and the packed tmax shadow
+batch, in sorted mode): that path takes the dense tracer, so there is no
+share to profile.  chip_smoke.py uses the recorders and the work count
+(`bound`).  Needs a CUDA card.
 """
 
 import argparse
@@ -181,6 +185,19 @@ def time_ms(fn, reps: int):
     return start.elapsed_time(stop) / reps, out
 
 
+def _time_waves(record, waves, reps: int):
+    """Times the kernel on each (name, operands) and prints its line."""
+    rows = []
+    for name, args in waves:
+        ms, out = time_ms(lambda: ct.KERNEL(*args), reps)
+        row = dict(path=record, wavefront=name, lanes=args[2], ms=ms,
+                   visited_per_tile=float(out[4].float().mean()))
+        rows.append(row)
+        print(f"{record} {name}: {args[2]} lanes, {ms:.4f} ms, "
+              f"{row['visited_per_tile']:.2f} clusters visited per tile", flush=True)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -205,13 +222,7 @@ def main(argv=None):
             waves, _ = veach_wavefronts(scene, spec, cam)
         else:
             waves, _ = bdpt_wavefronts(scene, spec, cam)
-        for name, args in waves:
-            ms, out = time_ms(lambda: ct.KERNEL(*args), a.reps)
-            row = dict(path=record, wavefront=name, lanes=args[2], ms=ms,
-                       visited_per_tile=float(out[4].float().mean()))
-            rows.append(row)
-            print(f"{record} {name}: {args[2]} lanes, {ms:.4f} ms, "
-                  f"{row['visited_per_tile']:.2f} clusters visited per tile", flush=True)
+        rows += _time_waves(record, waves, a.reps)
         del waves
         frames, prof = path_profile(record, scene, spec, cam, cfg)
         prof = dict(path=record, frames=frames, device_ms=prof["device_ms"],
@@ -225,6 +236,15 @@ def main(argv=None):
               f"{prof['kernel_ms'] / prof['device_ms']:.3f} of device time)", flush=True)
         del scene
         torch.cuda.empty_cache()
+    from ti_raytrace_tpu_torch.examples.scenes import prism_rainbow
+    from ti_raytrace_tpu_torch.tools.dense_sweep import prism_wavefronts
+
+    scene, cfg = prism_rainbow("cuda")
+    spec, cam = make_camera(scene, cfg, SIZE, SIZE)
+    waves, _ = prism_wavefronts(scene, cfg, spec, cam)
+    rows += _time_waves("prism_rainbow (dense-tracer path)", [
+        (f"{name} (sorted)", ct.kernel_inputs(scene, o, d, True, tmax=tmax)[0])
+        for name, o, d, tmax in waves], a.reps)
     result = dict(card=card, reps=a.reps, rows=rows, profiles=profiles)
     if a.out:
         with open(a.out, "w") as f:

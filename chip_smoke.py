@@ -92,7 +92,45 @@ Phases, each printing its own lines; any failure exits non-zero:
      shadow batch is compared on the dense hits within the bound, which is
      what its caller reads (a hit within rtol 1e-5 of its bound may fall
      on either side: counted, at most 0.1% of the lanes);
- 20. the same 32^2 prism render on CUDA and on the CPU, as in phase 5.
+ 20. the same 32^2 prism render on CUDA and on the CPU, as in phase 5;
+ 21. the LBVH of the benchmark scene (100,800 triangles + the sphere light)
+     built on CUDA by `accel/lbvh.build_lbvh_device`, bit-equal to the same
+     build on the CPU (sorted order, children, every leaf and internal box),
+     then flattened on the host: containment, coverage, and the threaded
+     arrays equal to `build_host`'s `bvh_*`; the device build's ms (a first
+     call, then a warm one), the flatten's ms, the tree height (the fit's
+     fixpoint steps) and the node count;
+ 22. the kernel against an independent oracle, the BVH traversal
+     (`accel/traverse.trace_closest` on CUDA over the scene's own tree),
+     on four wavefronts recorded above: the bench's camera wavefront (phase
+     3, shared origin), its bounce 1-2 wavefront (838,848 lanes, per-tile
+     order), veach_pt's bounce 1 (phase 6, sorted) and veach_bdpt's shadow
+     batch (phase 9, 2,621,440 lanes, per-lane tmax), each traced whole
+     by `accel.trace_shaded` / `accel.trace` (the kernel and its sphere
+     tail) and by the oracle, every lane (each wavefront takes the oracle
+     0.5-1.2 s on the H100, 2,621,440 lanes included).  Bar (`_oracle_check`):
+     |dt| within 1e-5 of max(t, |o|) (a shadow ray leaving a surface
+     rounds t against its origin's magnitude; grazing hits beyond it
+     counted: at most 0.1% of hits, each within 1e-3), prim ids equal but
+     on t-ties (each differing lane re-intersected by the oracle: both
+     prims at one distance, or the kernel's prim hit at its edge; at most
+     0.2% of hits), misses equal but at an edge (a hit
+     against a miss only where the ray passes within 1e-4 (barycentric)
+     of the prim's boundary, at most 1e-4 of the lanes); for the tmax batch the same,
+     an oracle hit beyond the bound counting as a miss, and a hit within
+     rtol 1e-5 of its bound, which may fall on either side, counted (at
+     most 0.1% of the lanes).  `trace_brute_force` on a BRUTE_LANES-lane subset of
+     each is held against both with the same bar.  Per wavefront: the
+     oracle's ms and iterations, the kernel's ms (CUDA events) and the
+     peak device memory;
+ 23. the native host runtime (`io/native.py`): native/tiray_native.cpp
+     built with g++ and loaded (a None fails), `load_obj`'s native parse
+     equal to the Python parser on Teapot.obj, bdpt.obj and cornell_box.obj,
+     `morton3d_native` against `utils/morton.morton3d` on the bench's
+     centroids (at most 0.1% of codes one cell over: the native code
+     multiplies by the reciprocal extent), and one 32^2 CLI run of the
+     benchmark (`examples/run.py`, two merged dispatches) whose JSON line
+     carries `metrics.RenderMeter.report()`'s fields.
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
@@ -101,7 +139,8 @@ object describing the kernel (launches summed over the counted runs of
 the three paths that reach it, max_abs_err the worst over every compared wavefront, ms,
 plain_ms and bound_ms of the bench camera wavefront, and each compared
 wavefront's figures with its width's launches per frame in its path's
-counted run); the last line is {"ok": true, "device": {...}}.
+counted run, and phase 22's agreement with the oracle per wavefront);
+the last line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -128,6 +167,14 @@ DENSE_REPS = 3   # timed traces per tracer in phase 13
 PLAIN_TILES = 1024  # tiles per block of the plain version
 T_RTOL = 1e-5
 PRIM_TIE_FRAC = 1e-3
+ORACLE_TIE_FRAC = 2e-3  # prim mismatches against the BVH oracle, share of hits
+BRUTE_LANES = 4096
+# a hit against a miss, or against another prim at one t, is an edge case
+# where the ray passes within this barycentric distance of the prim's
+# boundary by the oracle's arithmetic: the kernel's shared-origin form
+# rounds barycentrics by ~1.2e-5 (two edge hits of the bench camera
+# wavefront, on the H100)
+EDGE_MARGIN = 1e-4
 
 
 def log(*a):
@@ -255,7 +302,7 @@ def phase_kernel(scene, spec, cam, cfg):
     waves, _ = bench_wavefronts(scene, spec, cam, cfg)
     if [a[2] for _, a in waves] != [SIZE * SIZE, 838848, 174752, 32768]:
         fail(f"one merged group launched the widths {[a[2] for _, a in waves]}")
-    return _compare_all(waves, "[3 kernel]")
+    return (*_compare_all(waves, "[3 kernel]"), waves[:2])
 
 
 def _log_widths(tag, per_width, frames):
@@ -363,7 +410,7 @@ def phase_veach_kernel(scene, spec, cam):
     from ti_raytrace_tpu_torch.tools.kernel_wavefronts import veach_wavefronts
 
     waves, _ = veach_wavefronts(scene, spec, cam)
-    return _compare_all(waves, "[6 veach kernel]")
+    return (*_compare_all(waves, "[6 veach kernel]"), waves[1])
 
 
 def phase_veach_path(scene, spec, cam, cfg, sync):
@@ -423,7 +470,7 @@ def phase_bdpt_kernel(scene, spec, cam):
     waves, widths = bdpt_wavefronts(scene, spec, cam)
     if widths.count(SIZE * SIZE // 2 * 20) != 2 or waves[0][1][7] is not None:
         fail(f"one BDPT frame launched the widths {widths}")
-    return _compare_all(waves, "[9 bdpt kernel]")
+    return (*_compare_all(waves, "[9 bdpt kernel]"), waves[1])
 
 
 def phase_bdpt_path(scene, spec, cam, cfg, sync):
@@ -690,6 +737,276 @@ def phase_prism(sync):
     return max_err, rows
 
 
+def phase_lbvh(sync):
+    """Phase 21.  Returns the benchmark's host dict."""
+    import numpy as np
+    import torch
+
+    from ti_raytrace_tpu_torch.accel import lbvh
+    from ti_raytrace_tpu_torch.examples.scenes import benchmark_100k_cached_host
+    from ti_raytrace_tpu_torch.scene.build import prim_bounds
+
+    tag = "[21 lbvh]"
+    host = benchmark_100k_cached_host()
+    pmin, pmax = prim_bounds(host)
+    args = [torch.from_numpy(np.asarray(x)) for x in (pmin, pmax, host["aabb_min"],
+                                                      host["aabb_max"])]
+    n = pmin.shape[0]
+    gpu_args = [a.cuda() for a in args]
+    ms = []
+    for _ in range(2):  # a first call, then a warm one
+        sync()
+        t0 = time.perf_counter()
+        gpu = lbvh.build_lbvh_device(*gpu_args)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cpu = lbvh.build_lbvh_device(*args)
+    ms_cpu = (time.perf_counter() - t0) * 1e3
+    keys = ("sorted_idx", "left", "right", "leaf_min", "leaf_max", "int_min", "int_max")
+    equal = {k: bool(torch.equal(gpu[k].cpu(), cpu[k])) for k in keys}
+    t0 = time.perf_counter()
+    flat = lbvh.flatten_threaded(gpu)
+    ms_flat = (time.perf_counter() - t0) * 1e3
+    contained, covered = lbvh.check_containment(flat), lbvh.check_coverage(flat, n)
+    same_host = all(flat[k].tobytes() == host[k].tobytes() for k in flat)
+    log(f"{tag} {n} prims ({int((host['prim_type'] == 1).sum())} triangles): device build "
+        f"{ms[0]:.3f} ms first call, {ms[1]:.3f} ms warm (CPU {ms_cpu:.1f} ms); tree height "
+        f"{gpu['iterations']} fixpoint steps (CPU {cpu['iterations']}); {flat['bvh_prim'].shape[0]} "
+        f"nodes; flatten {ms_flat:.1f} ms")
+    log(f"{tag} CUDA tree bit-equal to the CPU's: {equal}; containment={contained}, "
+        f"coverage={covered}; threaded arrays equal to build_host's bvh_*={same_host}")
+    if n < 100_001 or not all(equal.values()) or gpu["iterations"] != cpu["iterations"]:
+        fail("the LBVH built on CUDA differs from the CPU build")
+    if not (contained and covered and same_host and flat["bvh_prim"].shape[0] == 2 * n - 1):
+        fail("the flattened LBVH breaks an invariant or differs from build_host's")
+    return host
+
+
+def _edge_margin(scene, o, d, prim):
+    """How far each ray passes from the boundary of its prim, by the
+    oracle's own arithmetic: a triangle's least barycentric (u, v or
+    1 - u - v, negative outside), a sphere's (r^2 - distance^2) / r^2
+    (negative outside).  A hit and a miss of two tracers can differ only
+    where this is ~0, at rounding distance from an edge."""
+    import torch
+
+    from ti_raytrace_tpu_torch.core import constants as C
+    from ti_raytrace_tpu_torch.utils import vec
+
+    pid = prim.clamp(min=0).long()
+    v0, e1, e2 = scene.tri_v0[pid], scene.tri_e1[pid], scene.tri_e2[pid]
+    p = vec.cross(d, e2)
+    det = vec.dot(e1, p)
+    tvec = torch.where(det[:, None] > 0.0, o - v0, v0 - o)
+    inv = 1.0 / torch.clamp(det.abs(), min=1e-30)
+    u = vec.dot(tvec, p) * inv
+    v = vec.dot(d, vec.cross(tvec, e1)) * inv
+    tri = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+    sid = scene.prim_vidx[pid].clamp(0, scene.shape_pos.shape[0] - 1).long()
+    oc = scene.shape_pos[sid] - o
+    r2 = scene.shape_param[sid, 0] ** 2
+    dop = vec.dot(d, oc) / torch.clamp(vec.dot(d, d), min=1e-30).sqrt()
+    sph = (r2 - (vec.dot(oc, oc) - dop * dop)) / torch.clamp(r2, min=1e-30)
+    return torch.where(scene.prim_type[pid] == C.PRIM_TRI, tri, sph)
+
+
+def _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax=None):
+    """The kernel's (t_k, p_k) against the oracle's (t_o, p_o) on the same
+    (N, 3) rays.  Bar: where both hit, |dt| <= T_RTOL * max(t, |o|_inf) —
+    a ray leaving a surface and hitting its neighbour at t ~ 1e-4 rounds
+    t against its origin's magnitude, not against t (beyond it: counted,
+    at most PRIM_TIE_FRAC of hits, each within 1e-3: grazing hits, which
+    the two formulations round apart); each differing prim id a t-tie
+    (both prims re-intersected by the oracle at one distance, rtol 1e-3,
+    or the kernel's prim hit at its edge, where the oracle's arithmetic
+    misses it by a rounding and hits the neighbour), at most
+    ORACLE_TIE_FRAC of hits; a hit on one
+    side and a miss on the other only at an edge (|_edge_margin| <=
+    EDGE_MARGIN),
+    at most 1e-4 of the lanes.  With tmax (bounded where > 0) the oracle's
+    hit beyond the bound counts as a miss, and a hit within rtol T_RTOL of
+    its bound is counted instead (at most PRIM_TIE_FRAC of the lanes).
+    Returns a dict of the figures and `ok`."""
+    import torch
+
+    from ti_raytrace_tpu_torch.scene.intersect import intersect_prim_any
+
+    hit_o = p_o >= 0
+    at_bound = torch.zeros_like(hit_o)
+    if tmax is not None:
+        bounded = tmax > 0
+        at_bound = hit_o & bounded & ((t_o - tmax).abs() <= T_RTOL * tmax)
+        hit_o = hit_o & ~(bounded & (t_o >= tmax))
+    lanes = ~at_bound
+    hit_k = p_k >= 0
+    both = hit_o & hit_k & lanes
+    n_hit = int(both.sum())
+
+    dt = (t_k - t_o).abs()
+    rel = torch.where(both, dt / torch.clamp(t_o.abs(), min=1e-30), 0.0)
+    # a ray leaving a surface rounds its t against its origin's magnitude
+    scaled = torch.where(both, dt / torch.maximum(t_o.abs(), o.abs().amax(dim=1)), 0.0)
+    t_off = int((scaled > T_RTOL).sum())
+    t_ok = t_off <= PRIM_TIE_FRAC * max(n_hit, 1) and float(scaled.max()) <= 1e-3
+
+    mism = torch.nonzero(both & (p_k != p_o)).squeeze(1)
+    ties_ok = True
+    if mism.numel():
+        a = intersect_prim_any(scene, o[mism], d[mism], p_k[mism])
+        b = intersect_prim_any(scene, o[mism], d[mism], p_o[mism])
+        edge = _edge_margin(scene, o[mism], d[mism], p_k[mism]).abs() <= EDGE_MARGIN
+        ties_ok = bool((((a - b).abs() <= 1e-3 * b.abs()) | edge).all())
+    frac = mism.numel() / max(n_hit, 1)
+
+    flip = torch.nonzero(lanes & (hit_o != hit_k)).squeeze(1)
+    edges_ok = True
+    if flip.numel():
+        prim = torch.where(hit_k[flip], p_k[flip], p_o[flip])
+        edges_ok = bool((_edge_margin(scene, o[flip], d[flip], prim).abs() <= EDGE_MARGIN).all())
+    ok = (n_hit > 0 and t_ok and ties_ok and frac <= ORACLE_TIE_FRAC and edges_ok
+          and flip.numel() <= 1e-4 * o.shape[0]
+          and int(at_bound.sum()) <= PRIM_TIE_FRAC * o.shape[0])
+    return dict(lanes=o.shape[0], hits=n_hit, miss_flips=flip.numel(), edges_ok=edges_ok,
+                max_rel_dt=float(rel.max()), t_beyond_rtol=int((rel > T_RTOL).sum()),
+                max_scaled_dt=float(scaled.max()), t_beyond_scaled=t_off, t_ok=t_ok,
+                prim_mismatch_frac=frac, ties_ok=ties_ok, at_bound=int(at_bound.sum()), ok=ok)
+
+
+def _oracle_line(tag, name, what, r):
+    log(f"{tag} {name}, {what}: {r['lanes']} lanes, {r['hits']} hits; hit/miss flips "
+        f"{r['miss_flips']} (all at an edge={r['edges_ok']}); max |dt|/t {r['max_rel_dt']:.3e} "
+        f"({r['t_beyond_rtol']} hits beyond {T_RTOL}), max |dt|/max(t, |o|) "
+        f"{r['max_scaled_dt']:.3e} ({r['t_beyond_scaled']} beyond; ok={r['t_ok']}); prim mismatch "
+        f"{r['prim_mismatch_frac']:.2e} of hits (ties ok={r['ties_ok']}); {r['at_bound']} lanes "
+        f"at their bound")
+    if not r["ok"]:
+        fail(f"{what} disagree on the {name} wavefront")
+
+
+def phase_oracle(waves, sync):
+    """Phase 22 on [(name, scene, kernel operands, tracer options)].
+    Returns one row per wavefront."""
+    import torch
+
+    from ti_raytrace_tpu_torch import accel
+    from ti_raytrace_tpu_torch.accel.traverse import trace_brute_force, trace_closest
+    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import time_ms
+
+    tag = "[22 oracle]"
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for name, scene, inputs, opts in waves:
+        n = inputs[2]
+        o_pl, d_pl = inputs[0][:, :n], inputs[1][:, :n]
+        tmax = None if inputs[7] is None else inputs[7][:n]
+        o, d = o_pl.T.contiguous(), d_pl.T.contiguous()
+        ms_kernel, _ = time_ms(lambda: KERNEL(*inputs), KERNEL_REPS)
+        if tmax is None:
+            t_k, p_k = accel.trace_shaded(scene, o_pl, d_pl, sort_rays=False, **opts)[:2]
+        else:
+            t_k, p_k = accel.trace(scene, o_pl, d_pl, sort_rays=False, tmax=tmax, **opts)
+
+        stats = {}
+        sync()
+        t0 = time.perf_counter()
+        t_o, p_o = trace_closest(scene, o, d, stats=stats)
+        sync()
+        ms_oracle = (time.perf_counter() - t0) * 1e3
+        r = _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax)
+        log(f"{tag} {name}: {n} lanes: oracle {ms_oracle:.1f} ms, {stats['iterations']} "
+            f"iterations; the kernel {ms_kernel:.4f} ms")
+        _oracle_line(tag, name, "kernel vs BVH oracle", r)
+
+        b = torch.linspace(0, n - 1, min(BRUTE_LANES, n), device=o.device).long()
+        t_b, p_b = trace_brute_force(scene, o[b], d[b])
+        tb = None if tmax is None else tmax[b]
+        t_ob, p_ob = trace_closest(scene, o[b], d[b])
+        _oracle_line(tag, name, "brute force vs BVH oracle",
+                     _oracle_check(scene, o[b], d[b], t_ob, p_ob, t_b, p_b))
+        _oracle_line(tag, name, "kernel vs brute force",
+                     _oracle_check(scene, o[b], d[b], t_k[b], p_k[b], t_b, p_b, tb))
+        rows.append(dict(wavefront=name, lanes=n, oracle_ms=ms_oracle,
+                         oracle_iterations=stats["iterations"], kernel_ms=ms_kernel,
+                         **{f"oracle_{key}": v for key, v in r.items()}))
+        del t_k, p_k, t_o, p_o, o, d
+    log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_native(host, root):
+    """Phase 23."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from ti_raytrace_tpu_torch.examples import run
+    from ti_raytrace_tpu_torch.io import native, obj
+    from ti_raytrace_tpu_torch.io.assets import asset_path
+    from ti_raytrace_tpu_torch.scene.build import prim_bounds
+    from ti_raytrace_tpu_torch.utils.morton import morton3d
+
+    tag = "[23 native]"
+    scratch = os.path.join(native.BUILD_DIR, f"chip_smoke-{os.getpid()}.so")
+    t0 = time.perf_counter()
+    built = native.build(scratch)  # a fresh g++ build from the checkout's source
+    seconds = time.perf_counter() - t0
+    if built:
+        os.remove(scratch)
+    lib = native.get_lib()
+    log(f"{tag} g++ build of {native.SOURCE}: {seconds:.2f} s, ok={built}; loaded "
+        f"{native.library_path() if lib is not None else None}")
+    if not built or lib is None:
+        fail("native/tiray_native.cpp did not build or load")
+    for model in ("Teapot.obj", "bdpt.obj", "cornell_box.obj"):
+        path = asset_path(f"model/{model}")
+        t0 = time.perf_counter()
+        a = native.load_obj_native(path)
+        ms_native = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        b = obj._load_obj_py(path)
+        ms_py = (time.perf_counter() - t0) * 1e3
+        same = (a is not None and [m.name for m in a.materials] == [m.name for m in b.materials]
+                and all(np.allclose(getattr(x, f), getattr(y, f), rtol=1e-6)
+                        for x, y in zip(a.materials, b.materials)
+                        for f in ("diffuse", "emissive", "shininess", "optical_density",
+                                  "transparency"))
+                and all(p.tobytes() == q.tobytes() for p, q in zip(
+                    a.tri_pos + a.tri_normal + a.tri_uv, b.tri_pos + b.tri_normal + b.tri_uv)))
+        log(f"{tag} {model}: {a.triangle_count() if a else 0} triangles, native {ms_native:.1f} "
+            f"ms, Python {ms_py:.1f} ms; equal={same}")
+        if not same:
+            fail(f"the native OBJ parse of {model} differs from the Python parser")
+    pmin, pmax = prim_bounds(host)
+    cent = 0.5 * (pmin + pmax)
+    lo, hi = host["aabb_min"], host["aabb_max"]
+    got = native.morton3d_native(cent, lo, hi)
+    q = torch.from_numpy((cent - lo) / np.maximum(hi - lo, np.float32(1e-12)))
+    want = morton3d(q[:, 0], q[:, 1], q[:, 2]).numpy()
+    off = int((got != want).sum())
+    log(f"{tag} morton3d_native vs morton3d on {cent.shape[0]} centroids: {off} codes differ "
+        f"({off / cent.shape[0]:.2e})")
+    if off > 1e-3 * cent.shape[0]:
+        fail("morton3d_native disagrees with utils/morton.morton3d")
+
+    out = io.StringIO()
+    png = os.path.join(root, ".cache", "chip_smoke_cli.png")
+    with contextlib.redirect_stdout(out):
+        run.main(["benchmark_100k", "--size", str(SMALL), "--frames", "32",
+                  "--snapshot-every", "16", "--device", "cuda", "--out", png])
+    rep = json.loads(out.getvalue().strip().splitlines()[-1])
+    meter = {k: rep.get(k) for k in ("fps", "spp_per_s", "mrays_per_s", "avg_frame_ms",
+                                     "compile_s")}
+    log(f"{tag} CLI benchmark_100k {SMALL}^2, 32 frames in 2 merged dispatches: meter {meter}; "
+        f"ms/frame {rep['ms_per_frame']:.3f}, overflow kills {rep['overflow_kills']}")
+    if None in meter.values() or not meter["fps"] > 0.0 or rep["frames"] != 32:
+        fail("the CLI's JSON line lacks the render meter's report")
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -713,12 +1030,17 @@ def main():
     spec, cam = make_camera(scene, cfg, SIZE, SIZE)
     log(f"[3 kernel] scene: {scene.n_prims} prims, {scene.cluster_bounds.shape[1]} "
         f"clusters, built in {time.perf_counter() - t0:.2f} s")
-    max_err, rows = phase_kernel(scene, spec, cam, cfg)
+    max_err, rows, (camera, deep) = phase_kernel(scene, spec, cam, cfg)
     launches, per_frame = phase_main_path(scene, spec, cam, cfg, sync)
     _attach_launches(rows, per_frame)
     phase_small_parity(cfg)
-    del scene
-    torch.cuda.empty_cache()
+    cam_o = camera[1][0][:, :camera[1][2]]
+    if not bool((cam_o == cam_o[:, :1]).all()):
+        fail("the recorded camera wavefront's rays do not share one origin")
+    oracle_waves = [  # (name, scene, kernel operands, tracer options) for phase 22
+        ("bench camera (shared origin)", scene, camera[1],
+         dict(shared_origin=camera[1][0][:, 0])),
+        ("bench bounces 1-2 (per-tile order)", scene, deep[1], dict(tile_order=True))]
 
     t0 = time.perf_counter()
     vscene, vcfg = veach_bdpt("cuda")
@@ -726,20 +1048,24 @@ def main():
     log(f"[6 veach kernel] scene: {vscene.n_prims} prims, {vscene.n_lights} lights, "
         f"{vscene.cluster_bounds.shape[1]} clusters, built in "
         f"{time.perf_counter() - t0:.2f} s")
-    err_v, veach_rows = phase_veach_kernel(vscene, vspec, vcam)
+    err_v, veach_rows, bounce1 = phase_veach_kernel(vscene, vspec, vcam)
+    oracle_waves.append(("veach_pt bounce 1 (sorted)", vscene, bounce1[1],
+                         dict(tile_order=True)))
     max_err = max(max_err, err_v)
     n, per_frame = phase_veach_path(vscene, vspec, vcam, vcfg, sync)
     launches += n
     _attach_launches(veach_rows, per_frame)
     phase_veach_parity(vcfg)
 
-    err_b, bdpt_rows = phase_bdpt_kernel(vscene, vspec, vcam)
+    err_b, bdpt_rows, shadow = phase_bdpt_kernel(vscene, vspec, vcam)
+    oracle_waves.append(("veach_bdpt shadow batch (sorted, tmax)", vscene, shadow[1],
+                         dict(tile_order=True)))
     max_err = max(max_err, err_b)
     n, per_frame = phase_bdpt_path(vscene, vspec, vcam, vcfg, sync)
     launches += n
     _attach_launches(bdpt_rows, per_frame)
     phase_bdpt_parity(vcfg)
-    del vscene
+    del scene, vscene  # phase 22 holds what it needs
     torch.cuda.empty_cache()
 
     phase_single_model(sync)
@@ -752,6 +1078,10 @@ def main():
     max_err = max(max_err, err_p)
     _attach_launches(prism_rows, {})  # the prism path takes the dense tracer: 0 launches
     phase_dense_parity("prism_rainbow", phase=20)
+    host = phase_lbvh(sync)
+    oracle_rows = phase_oracle(oracle_waves, sync)
+    del oracle_waves
+    phase_native(host, root)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
@@ -769,6 +1099,7 @@ def main():
         "bound_by": rows[0]["bound_by"],
         "library_ms": None,  # no PyTorch call computes a closest hit over clusters
         "wavefronts": [dict(path=p, **r) for p, rs in paths for r in rs],
+        "oracle": oracle_rows,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -56,7 +56,7 @@ def test_diag_box_matches_reference():
     finally:
         JBuilder.build = real_build
     jhost, thost = captured["host"], tdec._diag_box_host()
-    ref_keys = {k for k in jhost if not k.startswith("bvh_") and k != "cluster_mt"}
+    ref_keys = {k for k in jhost if k != "cluster_mt"}
     assert set(thost) == ref_keys
     for k in sorted(ref_keys):
         a, b = np.asarray(thost[k]), np.asarray(jhost[k])

@@ -52,7 +52,7 @@ EMITTER_SCALE = float(np.sqrt(3.0))
 def _contexts(seed, n, emitter_scale=EMITTER_SCALE):
     key = jax.random.PRNGKey(seed)
     return (jbs.make_spec_ctx_fn(emitter_scale)(key, n),
-            tbs.make_spec_ctx_fn(emitter_scale)(_tkey(key), n))
+            tbs.make_spec_ctx_fn(emitter_scale, device="cpu")(_tkey(key), n))
 
 
 def test_spec_ctx_matches_reference():
@@ -120,7 +120,7 @@ def test_prism_host_and_camera_match_reference():
     from ti_raytrace_tpu_torch.examples.scenes import framing_params
 
     js, jcfg, jhost, ts, tcfg, thost = reference_and_port("prism_rainbow")
-    ref_keys = {k for k in jhost if not k.startswith("bvh_") and k != "cluster_mt"}
+    ref_keys = {k for k in jhost if k != "cluster_mt"}
     assert set(thost) == ref_keys
     for k in sorted(ref_keys):
         a, b = np.asarray(thost[k]), np.asarray(jhost[k])
@@ -215,7 +215,7 @@ def test_spectral_subpaths_match_reference(case):
     ts, tcfg = reference_and_port("prism_rainbow")[3:5]
     sched = tcfg.bdpt_walk_compaction if case == "scene_compaction" else None
     (k_lam, k_ewalk, k_light, o, d), ref = _reference_spectral_subpaths(31, sched)
-    ctx = tbs.make_spec_ctx_fn(EMITTER_SCALE)(_tkey(k_lam), 256)
+    ctx = tbs.make_spec_ctx_fn(EMITTER_SCALE, device="cpu")(_tkey(k_lam), 256)
     port = tbd.build_subpaths(ts, torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d)),
                               _tkey(k_ewalk), _tkey(k_light), eye_depth=5, light_depth=4,
                               walk_compaction=sched, return_overflow=True, spec_ctx=ctx)
@@ -242,7 +242,7 @@ def test_spectral_render_matches_reference():
     jrender = jbs.make_render_frame(**jcfg.sky, walk_compaction=jcfg.bdpt_walk_compaction,
                                     shadow_cap=jcfg.bdpt_shadow_cap)
     trender = tbs.make_render_frame(**tcfg.sky, walk_compaction=tcfg.bdpt_walk_compaction,
-                                    shadow_cap=tcfg.bdpt_shadow_cap)
+                                    shadow_cap=tcfg.bdpt_shadow_cap, device="cpu")
     for frame, seed in ((1, 21), (2, 22)):
         want = np.asarray(jrender(js, jspec, jcam, jnp.int32(frame), jax.random.PRNGKey(seed)))
         got, overflow = trender(ts, tspec, tcam, frame, rng.PRNGKey(seed), return_overflow=True)
@@ -301,7 +301,7 @@ def lane_free_draws(monkeypatch):
     the front, which a compaction changes.  Returns a 256-lane context
     drawn before that, with a wavelength of its own on every lane."""
     real = rng.uniform
-    ctx = tbs.make_spec_ctx_fn(EMITTER_SCALE)(rng.PRNGKey(5), 256)
+    ctx = tbs.make_spec_ctx_fn(EMITTER_SCALE, device="cpu")(rng.PRNGKey(5), 256)
 
     def uniform(key, shape, device=None):
         return real(key, shape[:-1] + (1,), device).expand(shape).contiguous()
@@ -353,7 +353,7 @@ def test_shadow_cap_with_capacity_is_identity_and_counts_kills():
 
     ts = reference_and_port("prism_rainbow")[3]
     _, (spec, cam) = cameras("prism_rainbow", 16)
-    ctx = tbs.make_spec_ctx_fn(EMITTER_SCALE)(rng.PRNGKey(5), 256)
+    ctx = tbs.make_spec_ctx_fn(EMITTER_SCALE, device="cpu")(rng.PRNGKey(5), 256)
     key = rng.PRNGKey(7)
     k_eye, k_light, k_conn = rng.split(key, 3)
     k_cam, k_ewalk = rng.split(k_eye)

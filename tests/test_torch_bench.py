@@ -36,9 +36,9 @@ def test_step_is_the_merged_production_path(bench_scene):
         BENCH_GROUP, BENCH_SCHEDULE_MERGED, BENCH_PAY_DIVISORS)
     assert (bench.KF, bench.DISPATCHES, bench.SIZE, bench.BASELINE_FPS) == (128, 5, 512, 30.0)
     step = bench.make_step(scene, dataclasses.replace(cfg, group=2), spec, cam, kf=2)
-    fl, kills = step(film_mod.new_film(16, 16))
+    fl, kills = step(film_mod.new_film(16, 16, device="cpu"))
     want, want_kills = pt_rgb.render_film_frames_merged(
-        scene, spec, cam, film_mod.new_film(16, 16), n_frames=2, group=2,
+        scene, spec, cam, film_mod.new_film(16, 16, device="cpu"), n_frames=2, group=2,
         compaction=BENCH_SCHEDULE_MERGED, nee=False, pay_divisors=BENCH_PAY_DIVISORS)
     assert fl.frame == 2 and kills == want_kills
     assert torch.equal(fl.hdr, want.hdr) and float(fl.hdr.mean()) > 0.0

@@ -4,8 +4,9 @@ on the CPU: host dicts, whole pt_rgb renders, compaction calibration, the
 debug AOVs and the CLI.  The spectral renders are in test_torch_spectral.py.
 
 Tolerances, with their reasons:
-  * host dicts: byte-equal (both host builds are numpy), minus the keys only
-    the reference reads (`bvh_*`, `cluster_mt`);
+  * host dicts: byte-equal (both host builds are numpy; the BVH too, built
+    by each package's LBVH on the CPU), minus the key only the reference
+    reads (`cluster_mt`);
   * 16^2 renders: >= 98% of pixels within rtol 1e-3 and image means
     within 1% (XLA fuses multiply-adds, the port does not; an ulp flips a
     discrete decision now and then and with it a whole path), the bar of
@@ -41,7 +42,7 @@ def test_host_dict_matches_reference(name):
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
     js, jcfg, jhost, ts, tcfg, thost = reference_and_port(name)
-    ref_keys = {k for k in jhost if not k.startswith("bvh_") and k != "cluster_mt"}
+    ref_keys = {k for k in jhost if k != "cluster_mt"}
     assert set(thost) == ref_keys
     for k in sorted(ref_keys):
         a, b = np.asarray(thost[k]), np.asarray(jhost[k])
@@ -93,9 +94,9 @@ def test_single_model_merged_matches_sequential_and_reference():
     (jspec, jcam), (tspec, tcam) = cameras("single_model", 16)
     sched = tcfg.compaction
     assert not tpt.has_nee_materials(ts) and sched == jcfg.compaction
-    fm, ovm = tpt.render_film_frames_merged(ts, tspec, tcam, tfilm.new_film(16, 16, seed=13),
+    fm, ovm = tpt.render_film_frames_merged(ts, tspec, tcam, tfilm.new_film(16, 16, seed=13, device="cpu"),
                                             2, 1, sched, max_depth=6)
-    fs, ovs = tpt.render_film_frames(ts, tspec, tcam, tfilm.new_film(16, 16, seed=13),
+    fs, ovs = tpt.render_film_frames(ts, tspec, tcam, tfilm.new_film(16, 16, seed=13, device="cpu"),
                                      2, sched, max_depth=6)
     assert fm.frame == fs.frame == 2 and ovm == ovs == 0
     np.testing.assert_array_equal(fm.key.numpy(), fs.key.numpy())
@@ -103,7 +104,7 @@ def test_single_model_merged_matches_sequential_and_reference():
 
     jf, jov = jpt.render_film_frames_merged(js, jspec, jcam, jfilm.new_film(16, 16, seed=5),
                                             2, 2, sched, False, max_depth=6)
-    tf, tov = tpt.render_film_frames_merged(ts, tspec, tcam, tfilm.new_film(16, 16, seed=5),
+    tf, tov = tpt.render_film_frames_merged(ts, tspec, tcam, tfilm.new_film(16, 16, seed=5, device="cpu"),
                                             2, 2, sched, False, max_depth=6)
     assert tf.frame == int(jf.frame) == 2 and tov == int(jov) == 0
     _assert_render_close(tf.hdr.numpy(), np.asarray(jf.hdr))
@@ -163,8 +164,8 @@ def test_cli_renders_scene_and_resumes_checkpoint(name, tmp_path, capsys):
     assert (tmp_path / "a.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert cli(2, "halves.npz", "b.png")["frames"] == 2
     assert cli(4, "halves.npz", "b.png")["frames"] == 4
-    a = tfilm.load_checkpoint(str(tmp_path / "straight.npz"))
-    b = tfilm.load_checkpoint(str(tmp_path / "halves.npz"))
+    a = tfilm.load_checkpoint(str(tmp_path / "straight.npz"), device="cpu")
+    b = tfilm.load_checkpoint(str(tmp_path / "halves.npz"), device="cpu")
     assert a.frame == b.frame == 4 and torch.equal(a.key, b.key)
     assert float(a.hdr.mean()) > 0.01
     np.testing.assert_allclose(b.hdr.numpy(), a.hdr.numpy(), rtol=1e-6, atol=1e-7)
@@ -188,7 +189,7 @@ def test_cli_debug_and_unported(tmp_path, capsys):
         run.main(list(argv) + ["--size", "8", "--frames", "2", "--device", "cpu", "--out",
                                str(tmp_path / "o.png"), "--checkpoint", str(tmp_path / "c.npz")])
         line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        fl = tfilm.load_checkpoint(str(tmp_path / "c.npz"))
+        fl = tfilm.load_checkpoint(str(tmp_path / "c.npz"), device="cpu")
         (tmp_path / "c.npz").unlink()
         return line, fl
 

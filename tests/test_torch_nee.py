@@ -114,9 +114,9 @@ def test_smooth_normals_byte_equal():
 
 def test_veach_host_matches_reference(scenes):
     """The port's host dict of the Veach scene against the reference's,
-    minus the keys only the reference reads."""
+    minus the key only the reference reads (`cluster_mt`): the BVH too."""
     _, _, jhost, thost = scenes
-    ref_keys = {k for k in jhost if not k.startswith("bvh_") and k != "cluster_mt"}
+    ref_keys = {k for k in jhost if k != "cluster_mt"}
     assert set(thost) == ref_keys
     for k in sorted(ref_keys):
         a, b = np.asarray(thost[k]), np.asarray(jhost[k])
@@ -176,15 +176,21 @@ def test_coherence_order_matches_reference(scenes):
 
 def test_sorted_trace_matches_oracle(scenes):
     """~2k incoherent Veach rays (every 9th parked) through the sorted
-    mode of `trace` and `trace_shaded`: against the BVH oracle, and
-    identical to the port's own unsorted static-order trace."""
+    mode of `trace` and `trace_shaded`: against the reference's BVH
+    oracle, and identical to the port's own unsorted static-order trace;
+    the port's own oracle against the reference's on the same rays."""
     from ti_raytrace_tpu.accel.traverse import trace_closest
     from ti_raytrace_tpu_torch.accel import trace, trace_shaded
+    from ti_raytrace_tpu_torch.accel.traverse import trace_closest as port_closest
 
     js, ts, jhost, _ = scenes
     o, d = _box_rays(jhost, 2000, 7, parked_every=9)
     jt, jp = map(np.asarray, trace_closest(js, jnp.asarray(o.T), jnp.asarray(d.T)))
     to, td = torch.from_numpy(o), torch.from_numpy(d)
+    pt, pp = map(np.asarray, port_closest(ts, to.T.contiguous(), td.T.contiguous()))
+    np.testing.assert_array_equal(pp >= 0, jp >= 0)
+    np.testing.assert_allclose(pt, jt, rtol=1e-5, atol=0.0)
+    assert (pp != jp).mean() <= 0.002
     t, prim = trace(ts, to, td, sort_small=True)
     t_s, prim_s, uv_s, attr_s = trace_shaded(ts, to, td, sort_small=True)
     t_u, prim_u, uv_u, attr_u = trace_shaded(ts, to, td, sort_rays=False)
@@ -236,7 +242,7 @@ def test_veach_render_matches_reference(scenes, compaction):
     (jspec, jcam), (tspec, tcam) = _cameras(js, ts, 16)
     jf, jov = jpt.render_film_frames(js, jspec, jcam, jfilm.new_film(16, 16, seed=5), 2,
                                      compaction, True, max_depth=3)
-    tf, tov = tpt.render_film_frames(ts, tspec, tcam, tfilm.new_film(16, 16, seed=5), 2,
+    tf, tov = tpt.render_film_frames(ts, tspec, tcam, tfilm.new_film(16, 16, seed=5, device="cpu"), 2,
                                      compaction, True, max_depth=3)
     assert tf.frame == int(jf.frame) == 2 and tov == int(jov) == 0
     a, b = tf.hdr.numpy(), np.asarray(jf.hdr)
@@ -254,9 +260,9 @@ def test_merged_prologue_matches_sequential(scenes):
     _, ts, _, _ = scenes
     _, (spec, cam) = _cameras(scenes[0], ts, 16)
     sched = ((2, 2),)
-    fm, ovm = tpt.render_film_frames_merged(ts, spec, cam, tfilm.new_film(16, 16, seed=9),
+    fm, ovm = tpt.render_film_frames_merged(ts, spec, cam, tfilm.new_film(16, 16, seed=9, device="cpu"),
                                             2, 1, sched, True, max_depth=4)
-    fs, ovs = tpt.render_film_frames(ts, spec, cam, tfilm.new_film(16, 16, seed=9),
+    fs, ovs = tpt.render_film_frames(ts, spec, cam, tfilm.new_film(16, 16, seed=9, device="cpu"),
                                      2, sched, True, max_depth=4)
     assert fm.frame == fs.frame == 2 and ovm == ovs == 0
     assert float(fs.hdr.mean()) > 0.01

@@ -64,7 +64,7 @@ def _cameras(host, size):
     centre = 0.5 * (lo + hi)
     scale = float(np.linalg.norm(hi - lo)) * 0.8
     return ((JSpec(size, size), jorbit(centre, 0.0, 0.0, scale)),
-            (CameraSpec(size, size), orbit_camera(centre, 0.0, 0.0, scale)))
+            (CameraSpec(size, size), orbit_camera(centre, 0.0, 0.0, scale, device="cpu")))
 
 
 def _to_torch(carry):
@@ -133,7 +133,7 @@ def test_merged_render_matches_reference(scenes):
     jf, jov = jpt.render_film_frames_merged(js, jspec, jcam, jfilm.new_film(16, 16, seed=5),
                                             2, 2, SCHED, False, pay_divisors=(2,),
                                             max_depth=4)
-    tf, tov = tpt.render_film_frames_merged(ts, tspec, tcam, tfilm.new_film(16, 16, seed=5),
+    tf, tov = tpt.render_film_frames_merged(ts, tspec, tcam, tfilm.new_film(16, 16, seed=5, device="cpu"),
                                             2, 2, SCHED, False, pay_divisors=(2,),
                                             max_depth=4)
     assert tf.frame == int(jf.frame) == 2
@@ -151,9 +151,9 @@ def test_merged_group1_matches_sequential(scenes):
 
     _, ts, host = scenes
     _, (spec, cam) = _cameras(host, 16)
-    fm, ovm = tpt.render_film_frames_merged(ts, spec, cam, tfilm.new_film(16, 16, seed=13),
+    fm, ovm = tpt.render_film_frames_merged(ts, spec, cam, tfilm.new_film(16, 16, seed=13, device="cpu"),
                                             2, 1, SCHED, max_depth=4)
-    fs, ovs = tpt.render_film_frames(ts, spec, cam, tfilm.new_film(16, 16, seed=13),
+    fs, ovs = tpt.render_film_frames(ts, spec, cam, tfilm.new_film(16, 16, seed=13, device="cpu"),
                                      2, SCHED, max_depth=4)
     assert fm.frame == fs.frame == 2 and ovm == ovs
     np.testing.assert_array_equal(fm.key.numpy(), fs.key.numpy())
@@ -171,7 +171,7 @@ def test_overflow_kills_are_counted(scenes):
     carry["alive"][::2] = False
     _, overflow = tpt._compact(carry, 1024)
     assert int(overflow) == 2048 - 1024
-    fl, kills = tpt.render_film_frames_merged(ts, spec, cam, tfilm.new_film(128, 128, seed=1),
+    fl, kills = tpt.render_film_frames_merged(ts, spec, cam, tfilm.new_film(128, 128, seed=1, device="cpu"),
                                               1, 1, ((1, 64),), max_depth=2)
     assert kills > 0 and fl.frame == 1
 
@@ -191,7 +191,7 @@ def test_unported_paths_raise(scenes, capsys):
 
     _, ts, host = scenes
     _, (spec, cam) = _cameras(host, 16)
-    fl = tfilm.new_film(16, 16)
+    fl = tfilm.new_film(16, 16, device="cpu")
     o, d = torch.zeros(3, 40), torch.ones(3, 40)
     t, _ = trace(ts, o, d, sort_small=True, tmax=torch.ones(40))
     assert t.shape == (40,)
@@ -232,7 +232,7 @@ def test_nee_is_a_no_op_on_glass(scenes):
     for sched, merged in ((SCHED, True), (None, False)):
         films = []
         for nee in (False, True):
-            fl = tfilm.new_film(16, 16, seed=21)
+            fl = tfilm.new_film(16, 16, seed=21, device="cpu")
             if merged:
                 fl, ov = tpt.render_film_frames_merged(ts, spec, cam, fl, 2, 2, sched, nee,
                                                        max_depth=4)

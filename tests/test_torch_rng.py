@@ -69,7 +69,7 @@ def test_film_key_chain_matches_reference():
     from ti_raytrace_tpu import film as jfilm
     from ti_raytrace_tpu_torch import film as tfilm
 
-    jf, tf = jfilm.new_film(4, 4, seed=11), tfilm.new_film(4, 4, seed=11)
+    jf, tf = jfilm.new_film(4, 4, seed=11), tfilm.new_film(4, 4, seed=11, device="cpu")
     img = np.random.default_rng(0).random((4, 4, 3), np.float32)
     jf = jfilm.accumulate_group(jfilm.accumulate(jf, jnp.asarray(img)), jnp.asarray(img), 3)
     tf = tfilm.accumulate_group(tfilm.accumulate(tf, torch.from_numpy(img)),

@@ -24,10 +24,9 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# keys of the reference host dict that the port's builder does not make:
-# the threaded BVH (read only by the reference's oracle traversal) and the
-# matmul-form narrow-phase table of its disabled MT_MXU kernel mode
-OMITTED_KEYS = {"bvh_min", "bvh_max", "bvh_prim", "bvh_escape", "cluster_mt"}
+# the key of the reference host dict that the port's builder does not make:
+# the matmul-form narrow-phase table of its disabled MT_MXU kernel mode
+OMITTED_KEYS = {"cluster_mt"}
 
 
 def _assert_host_equal(port: dict, ref: dict):
@@ -163,7 +162,7 @@ def test_camera_directions_match_reference():
     from ti_raytrace_tpu_torch.core import rng
 
     target, scale = (0.3, 1.2, -0.4), 7.5
-    jcam, tcam = jorbit(target, 0.4, 0.2, scale), orbit_camera(target, 0.4, 0.2, scale)
+    jcam, tcam = jorbit(target, 0.4, 0.2, scale), orbit_camera(target, 0.4, 0.2, scale, device="cpu")
     np.testing.assert_array_equal(tcam.view_inv.numpy(), np.asarray(jcam.view_inv))
     np.testing.assert_array_equal(tcam.eye.numpy(), np.asarray(jcam.eye))
     for w, h in ((16, 16), (24, 40)):
@@ -182,7 +181,7 @@ def test_checkpoints_interchangeable(tmp_path):
     from ti_raytrace_tpu_torch import film as tfilm
 
     img = np.random.default_rng(2).random((6, 5, 3), np.float32)
-    tf = tfilm.accumulate(tfilm.new_film(6, 5, seed=4), torch.from_numpy(img))
+    tf = tfilm.accumulate(tfilm.new_film(6, 5, seed=4, device="cpu"), torch.from_numpy(img))
     p = str(tmp_path / "t.npz")
     tfilm.save_checkpoint(tf, p)
     jf = jfilm.load_checkpoint(p)
@@ -192,7 +191,7 @@ def test_checkpoints_interchangeable(tmp_path):
     np.testing.assert_array_equal(np.asarray(jf.hdr), tf.hdr.numpy())
     q = str(tmp_path / "j.npz")
     jfilm.save_checkpoint(jfilm.accumulate(jf, jnp.asarray(img)), q)
-    back = tfilm.load_checkpoint(q)
+    back = tfilm.load_checkpoint(q, device="cpu")
     assert back.frame == 2
     np.testing.assert_array_equal(back.key.numpy(), tfilm.accumulate(
         tf, torch.from_numpy(img)).key.numpy())

@@ -44,7 +44,7 @@ def sdatas():
     for name in ("sky_dome", "spectral_box"):
         jcfg, tcfg = reference_and_port(name)[1], reference_and_port(name)[4]
         assert jcfg.sky == tcfg.sky
-        out[name] = (jps.make_spectral_data(**jcfg.sky), tps.make_spectral_data(**tcfg.sky))
+        out[name] = (jps.make_spectral_data(**jcfg.sky), tps.make_spectral_data(**tcfg.sky, device="cpu"))
     return out
 
 
@@ -76,7 +76,7 @@ def test_host_tables_bit_equal():
     assert (tr2s.eval_np(got[:, None, :], lam).tobytes()
             == jr2s.eval_np(want[:, None, :], lam).tobytes())
     with pytest.raises(FileNotFoundError, match="spec_table"):
-        tr2s.load_table("/nonexistent/spec_table.npz")
+        tr2s.load_table("/nonexistent/spec_table.npz", generate=False)
 
     for args in ((3.0, 0.5, 0.17), (2.5, 0.3, 0.6), (10.0, 1.0, 1.2)):
         js, ts = jsky.build_sky(*args), tsky.build_sky(*args)
@@ -232,7 +232,7 @@ def test_compaction_matches_exact_path(sdatas):
     _, (spec, cam) = cameras("spectral_box", 32)
     means = {}
     for sched in (None, ((2, 2), (5, 8))):
-        fl, ov = tps.render_film_frames_spec(ts, tsd, spec, cam, tfilm.new_film(32, 32, seed=5),
+        fl, ov = tps.render_film_frames_spec(ts, tsd, spec, cam, tfilm.new_film(32, 32, seed=5, device="cpu"),
                                              6, sched, max_depth=6)
         assert ov == 0 and fl.frame == 6
         means[sched] = float(fl.hdr.mean())
@@ -253,10 +253,11 @@ def test_film_frames_match_loop_and_reference(sdatas, name):
     jsd, tsd = sdatas[name]
     (jspec, jcam), (tspec, tcam) = cameras(name, 16)
     assert tcfg.compaction == jcfg.compaction
-    fl, ov = tps.render_film_frames_spec(ts, tsd, tspec, tcam, tfilm.new_film(16, 16, seed=9),
+    fl, ov = tps.render_film_frames_spec(ts, tsd, tspec, tcam, tfilm.new_film(16, 16, seed=9, device="cpu"),
                                          3, tcfg.compaction, max_depth=5)
-    render_frame = tps.make_render_frame(**tcfg.sky, compaction=tcfg.compaction, max_depth=5)
-    loop = tfilm.new_film(16, 16, seed=9)
+    render_frame = tps.make_render_frame(**tcfg.sky, compaction=tcfg.compaction, max_depth=5,
+                                         device="cpu")
+    loop = tfilm.new_film(16, 16, seed=9, device="cpu")
     for _ in range(3):
         loop = tfilm.accumulate(loop, render_frame(ts, tspec, tcam, loop.frame, loop.key))
     assert ov == 0 and fl.frame == loop.frame == 3

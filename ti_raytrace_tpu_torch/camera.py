@@ -48,7 +48,7 @@ class CameraState(NamedTuple):
 
 
 def orbit_camera(target, yaw: float, pitch: float, scale: float,
-                 device="cpu") -> CameraState:
+                 device="cuda") -> CameraState:
     """Orbit-rig view matrix, computed in float64 numpy and stored f32:
     eye = target + scale * (cos p sin y, sin p, cos p cos y), with the up
     vector following the pitch."""

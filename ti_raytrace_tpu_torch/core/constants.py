@@ -10,6 +10,11 @@ TWO_PI = float(2.0 * np.pi)
 INF = 1.0e6  # rays miss at t >= INF
 EPS = 1e-5
 
+# --- physical constants of Planck's law -----------------------------------
+BOLTZMANN_K = 1.38064852e-23
+PLANCK_H = 6.62607015e-34
+LIGHT_C = 299792458.0
+
 # --- material type codes -------------------------------------------------
 MAT_DISNEY = 0
 MAT_GLASS = 1
@@ -28,12 +33,20 @@ PRIM_NONE = 0
 PRIM_TRI = 1
 PRIM_SHAPE = 2
 
-# --- XYZ -> linear sRGB (the reference's matrix, rows r, g, b) -----------
+# --- XYZ <-> linear sRGB (the reference's matrices, rows r, g, b / x, y, z)
 XYZ_TO_SRGB = np.array(
     [
         [3.240479, -1.537150, -0.498535],
         [-0.969256, 1.875991, 0.041556],
         [0.055648, -0.204043, 1.057311],
+    ],
+    dtype=np.float32,
+)
+SRGB_TO_XYZ = np.array(
+    [
+        [0.412453, 0.357580, 0.180423],
+        [0.212671, 0.715160, 0.072169],
+        [0.019334, 0.119193, 0.950227],
     ],
     dtype=np.float32,
 )

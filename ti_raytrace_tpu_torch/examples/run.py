@@ -34,8 +34,11 @@ the film too (an existing checkpoint is resumed: same frame count, same
 key chain).  A merged call that would be no whole number of groups (a
 tail, a snapshot boundary) takes the plain batched path.  The first call
 is a warm-up (it includes the kernel build on a fresh checkout); ms/frame
-is timed over the remaining calls, each ending in a device synchronize.
-Prints one JSON line with ms/frame and the overflow count (compaction
+is timed over the remaining calls, each ending in a device synchronize,
+and `metrics.RenderMeter` meters every call the same way (its first
+call is its warm-up).  Prints one JSON line with ms/frame, the meter's
+report (fps, spp_per_s, mrays_per_s, avg_frame_ms, compile_s) and the
+overflow count (compaction
 kills for the path tracers, the walk compaction overflow plus capped
 shadow lanes for BDPT; non-zero means live paths were cut: a bias).
 """
@@ -49,6 +52,7 @@ import torch
 from ti_raytrace_tpu_torch import film as film_mod
 from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
 from ti_raytrace_tpu_torch.integrators import bdpt_rgb, bdpt_spec, debug, pt_rgb, pt_spec
+from ti_raytrace_tpu_torch.metrics import RenderMeter
 
 INTEGRATORS = ("pt_rgb", "pt_spec", "bdpt_rgb", "bdpt_spec", "debug")
 BDPT = ("bdpt_rgb", "bdpt_spec")
@@ -155,6 +159,7 @@ def main(argv=None):
         except FileNotFoundError:
             pass
     kills, times, counts = 0, [], []
+    meter = RenderMeter(args.size * args.size)
     while fl.frame < args.frames:
         until_snap = args.snapshot_every - fl.frame % args.snapshot_every
         n = min(batch, args.frames - fl.frame, until_snap)
@@ -163,6 +168,7 @@ def main(argv=None):
         _sync(device)
         times.append(time.perf_counter() - t0)
         counts.append(n)
+        meter.tick(times[-1], n)
         kills += ov
         print(f"frame {fl.frame}/{args.frames}  {times[-1] / n * 1e3:.3f} ms/frame"
               f"  {'walk overflow' if integrator in BDPT else 'overflow kills'} {ov}",
@@ -175,13 +181,14 @@ def main(argv=None):
         film_mod.save_png(fl, args.out, exposure=cfg.exposure)
         times, counts = [0.0], [1]
     timed = slice(1, None) if len(times) > 1 else slice(None)
+    report = {k: v for k, v in meter.report().items() if k != "frames"}
     print(json.dumps(dict(
         scene=args.example, integrator=integrator, nee=nee, size=args.size,
         frames=fl.frame, group=group if merged else None, batch=batch,
         device=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
         warmup_ms_per_frame=times[0] / counts[0] * 1e3,
         ms_per_frame=sum(times[timed]) / sum(counts[timed]) * 1e3,
-        overflow_kills=kills, out=args.out,
+        overflow_kills=kills, out=args.out, **report,
     )))
 
 

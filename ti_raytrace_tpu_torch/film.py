@@ -24,7 +24,7 @@ class Film:
     key: torch.Tensor   # (2,) int64 key for the *next* frame (host)
 
 
-def new_film(width: int, height: int, seed: int = 0, device="cpu") -> Film:
+def new_film(width: int, height: int, seed: int = 0, device="cuda") -> Film:
     return Film(hdr=torch.zeros((width, height, 3), dtype=torch.float32, device=device),
                 frame=0, key=rng.PRNGKey(seed))
 
@@ -70,7 +70,7 @@ def save_checkpoint(film: Film, path: str) -> None:
     )
 
 
-def load_checkpoint(path: str, device="cpu") -> Film:
+def load_checkpoint(path: str, device="cuda") -> Film:
     with np.load(path if path.endswith(".npz") else path + ".npz") as z:
         return Film(
             hdr=torch.as_tensor(z["hdr"], dtype=torch.float32).to(device),

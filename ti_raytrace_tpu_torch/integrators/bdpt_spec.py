@@ -27,12 +27,7 @@ from ti_raytrace_tpu_torch.camera import CameraSpec
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.integrators import bdpt_rgb
-
-
-def _sigmoid_spectrum(c0, c1, c2, lam):
-    """The rgb2spec sigmoid of coefficient rows (N,) at lam (N,)."""
-    x = (c0 * lam + c1) * lam + c2
-    return 0.5 * x * torch.rsqrt(x * x + 1.0) + 0.5
+from ti_raytrace_tpu_torch.spectral.rgb2spec import eval_hero
 
 
 class SpecCtx(NamedTuple):
@@ -44,18 +39,18 @@ class SpecCtx(NamedTuple):
     def reflect_power(self, attr):
         """Reflectance at lam from the packed rgb2spec coefficient rows
         (scene/packs.py 32:35); (1, N)."""
-        return _sigmoid_spectrum(attr[32], attr[33], attr[34], self.lam)[None]
+        return eval_hero(attr[32], attr[33], attr[34], self.lam)[None]
 
     def light_power_attr(self, attr):
         """Emission power at lam from the packed emission-tint rows 35:39
         (d65 * tint spectrum * |emission|); (1, N)."""
-        s = _sigmoid_spectrum(attr[35], attr[36], attr[37], self.lam)
+        s = eval_hero(attr[35], attr[36], attr[37], self.lam)
         return (self.d65_val * s * attr[38])[None]
 
     def light_power_sample(self, ls):
         """The same from a light-sample dict (scene/sample_planar.py),
         times the sample's visibility where it carries one."""
-        s = _sigmoid_spectrum(ls["em_c0"], ls["em_c1"], ls["em_c2"], self.lam)
+        s = eval_hero(ls["em_c0"], ls["em_c1"], ls["em_c2"], self.lam)
         p = self.d65_val * s * ls["em_scale"]
         vis = ls.get("vis")
         if vis is not None:
@@ -68,7 +63,7 @@ class SpecCtx(NamedTuple):
         return self.sensor_rgb * power
 
 
-def make_spec_ctx_fn(emitter_scale: float = 1.0, device="cpu"):
+def make_spec_ctx_fn(emitter_scale: float = 1.0, device="cuda"):
     """Closes over the sensor and D65 tables on `device`; returns
     f(key, N) -> SpecCtx drawing one wavelength per lane.
 
@@ -103,7 +98,7 @@ def make_spec_ctx_fn(emitter_scale: float = 1.0, device="cpu"):
 
 
 def make_render_frame(emitter_scale: float = 1.0, walk_compaction=None, shadow_cap=None,
-                      device="cpu"):
+                      device="cuda"):
     """A render_frame(scene, spec, cam, frame, key[, return_overflow]) ->
     (W, H, 3) radiance of one unsliced spectral BDPT frame, closing over
     the tables on `device` (the scene's device).  The key chain is the

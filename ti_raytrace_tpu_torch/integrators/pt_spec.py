@@ -49,6 +49,7 @@ from ti_raytrace_tpu_torch.ops.shading import decode_hit
 from ti_raytrace_tpu_torch.scene.sample_planar import sample_li
 from ti_raytrace_tpu_torch.sky.hosek import sky_radiance_hero
 from ti_raytrace_tpu_torch.spectral import spd as spd_mod
+from ti_raytrace_tpu_torch.spectral.rgb2spec import eval_hero
 from ti_raytrace_tpu_torch.utils.geometry import bk7_ior
 from ti_raytrace_tpu_torch.utils.sampling import power_heuristic
 
@@ -68,7 +69,7 @@ class SpectralData(NamedTuple):
 
 
 def make_spectral_data(turbidity=3.0, albedo=0.5, elevation=0.17,
-                       emitter_scale=1.0, device="cpu") -> SpectralData:
+                       emitter_scale=1.0, device="cuda") -> SpectralData:
     """Host precompute of the tables, moved to `device`.  The sky defaults
     are the reference integrator's.  emitter_scale: per-scene factor on
     every emitter term (emitter hits and NEE); the spectral box passes
@@ -105,13 +106,6 @@ def make_spectral_data(turbidity=3.0, albedo=0.5, elevation=0.17,
     )
 
 
-def _eval_rgb2spec(c0, c1, c2, lam4):
-    """Sigmoid spectrum at the 4 hero wavelengths; coefficient rows (N,),
-    lam4 (4, N) -> (4, N)."""
-    x = (c0[None] * lam4 + c1[None]) * lam4 + c2[None]
-    return 0.5 * x * torch.rsqrt(x * x + 1.0) + 0.5
-
-
 def _hero_lambdas(lam0):
     """(4, N) hero wavelengths of the carried lambda0 row."""
     steps = torch.arange(4, dtype=torch.float32, device=lam0.device)[:, None]
@@ -143,7 +137,7 @@ def _bounce(scene, sdata, carry, key):
     radiance = carry["radiance"]      # (4, N)
 
     # per-hit spectral quantities from the packed attribute rows
-    refl_spec_rgb = _eval_rgb2spec(attr[32], attr[33], attr[34], lam4)
+    refl_spec_rgb = eval_hero(attr[32][None], attr[33][None], attr[34][None], lam4)
     em_tint = attr[38][None].expand(4, N)  # the saturated tint: 1 * |emission|
     spd_id = attr[39]
     measured = torch.where(
@@ -372,7 +366,7 @@ def render_film_frames_spec(scene, sdata: SpectralData, spec: CameraSpec, cam, f
 
 
 def make_render_frame(turbidity=3.0, albedo=0.5, elevation=0.17, emitter_scale=1.0,
-                      compaction=None, max_depth: int = MAX_DEPTH, device="cpu"):
+                      compaction=None, max_depth: int = MAX_DEPTH, device="cuda"):
     """A render_frame(scene, spec, cam, frame, key) -> (W, H, 3) closing
     over the spectral tables on `device` (the scene's device)."""
     sdata = make_spectral_data(turbidity, albedo, elevation, emitter_scale, device=device)

@@ -1,8 +1,10 @@
-"""Wavefront OBJ/MTL loader (host-side numpy; twin of the pure-Python path
-of ti_raytrace_tpu/io/obj.py, `_load_obj_py`).
+"""Wavefront OBJ/MTL loader (host-side numpy; twin of
+ti_raytrace_tpu/io/obj.py).
 
 Geometry is grouped per material in MTL-declaration order, polygon faces
 are fan-triangulated and every triangle corner is a fresh vertex record.
+`load_obj` takes the native C++ parser (io/native.py) when it builds and
+loads, with the pure-Python `_load_obj_py` as its fallback and oracle.
 """
 
 import os
@@ -30,6 +32,9 @@ class ObjMesh:
     tri_pos: list = field(default_factory=list)
     tri_normal: list = field(default_factory=list)
     tri_uv: list = field(default_factory=list)
+
+    def triangle_count(self) -> int:
+        return sum(int(p.shape[0]) for p in self.tri_pos)
 
 
 def _parse_mtl(path):
@@ -73,7 +78,19 @@ def _resolve(idx: int, n: int) -> int:
     return idx - 1 if idx > 0 else n + idx
 
 
-def load_obj(path: str) -> ObjMesh:
+def load_obj(path: str, native: bool = True) -> ObjMesh:
+    """Load an OBJ: the native parser when it is available (set
+    TIRAY_NO_NATIVE=1 to refuse it), else the Python one."""
+    if native and not os.environ.get("TIRAY_NO_NATIVE"):
+        from ti_raytrace_tpu_torch.io.native import load_obj_native
+
+        mesh = load_obj_native(path)
+        if mesh is not None:
+            return mesh
+    return _load_obj_py(path)
+
+
+def _load_obj_py(path: str) -> ObjMesh:
     positions: list = []
     normals: list = []
     uvs: list = []

@@ -1,16 +1,18 @@
 """Host-side scene assembly: triangle soup + analytic shapes -> host dict
-(numpy; twin of ti_raytrace_tpu/scene/build.py without the BVH; smooth
-normals and the spectral pack rows included).
+(numpy; twin of ti_raytrace_tpu/scene/build.py; smooth normals, the
+threaded BVH and the spectral pack rows included).
 
 `SceneBuilder.build_host` returns the same array dict as the reference's,
-byte for byte, minus the keys only the reference reads: the threaded BVH
-(`bvh_*`, the reference's oracle traversal) and `cluster_mt` (its
-disabled matmul narrow phase).  `scene.data.device_scene` turns either
-package's dict into device tensors.
+byte for byte, minus the one key only the reference reads: `cluster_mt`
+(its disabled matmul narrow phase).  The BVH (`bvh_*`, accel/lbvh.py) is
+built on the CPU from the per-primitive AABBs, as the reference pins its
+build to the host.  `scene.data.device_scene` turns either package's dict
+into device tensors.
 """
 
 import numpy as np
 
+from ti_raytrace_tpu_torch.accel.lbvh import build_bvh
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.io.image import read_image
 from ti_raytrace_tpu_torch.io.obj import load_obj
@@ -167,20 +169,6 @@ class SceneBuilder:
         if light_prim.shape[0] == 0:
             light_prim = np.zeros((1,), np.int32)  # keep shapes static; unused
 
-        aabb_min = self.aabb_min.copy()
-        aabb_max = self.aabb_max.copy()
-        if not np.all(aabb_min <= aabb_max):  # shapes-only scene
-            prim_min = np.zeros((P, 3), np.float32)
-            prim_max = np.zeros((P, 3), np.float32)
-            for k, (s_i, _) in enumerate(self._shape_prims):
-                sh = self.shapes[s_i]
-                p0 = np.asarray(sh.pos, np.float32)
-                r = sh.param[0] if sh.type == C.SHAPE_SPHERE else 0.0
-                prim_min[T + k] = p0 - r
-                prim_max[T + k] = p0 + r
-            aabb_min = prim_min.min(0)
-            aabb_max = prim_max.max(0)
-
         if self.shapes:
             shape_type = np.asarray([sh.type for sh in self.shapes], np.int32)
             shape_pos = np.asarray([sh.pos for sh in self.shapes], np.float32)
@@ -189,6 +177,17 @@ class SceneBuilder:
             shape_type = np.zeros((1,), np.int32)
             shape_pos = np.zeros((1, 3), np.float32)
             shape_param = np.zeros((1, 6), np.float32)
+
+        prim_min, prim_max = prim_bounds(dict(
+            vtx_pos=pos.reshape(-1, 3), prim_type=prim_type, prim_vidx=prim_vidx,
+            shape_type=shape_type, shape_pos=shape_pos, shape_param=shape_param))
+        aabb_min = self.aabb_min.copy()
+        aabb_max = self.aabb_max.copy()
+        if not np.all(aabb_min <= aabb_max):  # shapes-only scene
+            aabb_min = prim_min.min(0)
+            aabb_max = prim_max.max(0)
+
+        bvh = build_bvh(prim_min, prim_max, aabb_min, aabb_max, device="cpu")
 
         env = self.env_img
         if self.env_power == 0.0:
@@ -217,6 +216,10 @@ class SceneBuilder:
             light_prim=light_prim,
             env_img=env,
             env_power=np.float32(self.env_power),
+            bvh_min=bvh["bvh_min"],
+            bvh_max=bvh["bvh_max"],
+            bvh_prim=bvh["bvh_prim"],
+            bvh_escape=bvh["bvh_escape"],
             aabb_min=aabb_min,
             aabb_max=aabb_max,
         )
@@ -227,6 +230,22 @@ class SceneBuilder:
         host["light_attr"] = build_light_attr(host, spectral=spectral)
         host.update(build_clusters(host))
         return host
+
+
+def prim_bounds(host: dict):
+    """Per-primitive AABBs (P, 3) f32 of a host dict, the boxes the BVH is
+    built over: a triangle's corners, a sphere's centre +- radius, and any
+    other shape as a point at its position (never hit)."""
+    ptype = np.asarray(host["prim_type"])
+    T = int((ptype == C.PRIM_TRI).sum())  # triangles come first
+    corners = np.asarray(host["vtx_pos"])[:3 * T].reshape(T, 3, 3)
+    sid = np.asarray(host["prim_vidx"])[T:]
+    p0 = np.asarray(host["shape_pos"])[sid]
+    radius = np.where(np.asarray(host["shape_type"])[sid] == C.SHAPE_SPHERE,
+                      np.asarray(host["shape_param"])[sid, 0], np.float32(0.0))
+    prim_min = np.concatenate([corners.min(axis=1), p0 - radius[:, None]]).astype(np.float32)
+    prim_max = np.concatenate([corners.max(axis=1), p0 + radius[:, None]]).astype(np.float32)
+    return prim_min, prim_max
 
 
 def _smooth_normals(pos, nrm):

@@ -3,9 +3,12 @@
 
 `device_scene(host, device)` is the weight-transfer function: it takes
 the numpy host dict of either package's `SceneBuilder.build_host` (or an
-npz cache of one) and moves what the port reads onto `device`; other keys
-(the reference's `bvh_*`, `cluster_mt`, and `cluster_attr`, which the
-port's tracer replaces by a gather from `prim_attr`) stay on the host.
+npz cache of one) and moves what the port reads onto `device` (the card
+unless the caller names another); other keys (the reference's
+`cluster_mt`, and `cluster_attr`, which the port's tracer replaces by a
+gather from `prim_attr`) stay on the host.  The threaded BVH (`bvh_*`)
+and the vertex streams are what the BVH oracle reads
+(accel/traverse.py, scene/intersect.py).
 The env map's 2x2-block bilinear texture and the cluster tracer's
 supercluster table are built here once instead of per lookup or trace.
 """
@@ -26,9 +29,14 @@ class SceneData:
     # --- primitives (P,): what the dense sweep reads (ops/dense_trace.py)
     prim_type: torch.Tensor     # (P,) int32 PRIM_TRI / PRIM_SHAPE
     prim_vidx: torch.Tensor     # (P,) int32 base vertex index | shape index
+    prim_mat: torch.Tensor      # (P,) int32 material index
     tri_v0: torch.Tensor        # (P,3) f32 (zero rows for shape prims)
     tri_e1: torch.Tensor        # (P,3) f32 v1 - v0
     tri_e2: torch.Tensor        # (P,3) f32 v2 - v0
+    # --- vertices, 3 per triangle (V,): scene/intersect.hit_attributes
+    vtx_pos: torch.Tensor       # (V,3) f32
+    vtx_normal: torch.Tensor    # (V,3) f32
+    vtx_uv: torch.Tensor        # (V,2) f32
     # --- analytic shapes (S,)
     shape_type: torch.Tensor    # (S,) int32 SHAPE_SPHERE/QUAD/SPOT/LASER
     shape_pos: torch.Tensor     # (S,3) f32
@@ -44,6 +52,11 @@ class SceneData:
     cluster_bounds: torch.Tensor  # (8, C) f32
     cluster_tri: torch.Tensor     # (12, C*B) f32
     super_bounds: torch.Tensor    # (8, C/32) f32 ops/cluster_trace.super_table
+    # --- threaded BVH, DFS preorder (K = 2P - 1,): accel/lbvh.py, the oracle's
+    bvh_min: torch.Tensor       # (K,3) f32
+    bvh_max: torch.Tensor       # (K,3) f32
+    bvh_prim: torch.Tensor      # (K,) int32 primitive id at a leaf, -1 inside
+    bvh_escape: torch.Tensor    # (K,) int32 DFS index after the subtree (K = end)
     # --- global
     aabb_min: torch.Tensor      # (3,) f32
     aabb_max: torch.Tensor      # (3,) f32
@@ -57,8 +70,12 @@ class SceneData:
     def device(self) -> torch.device:
         return self.cluster_tri.device
 
+    @property
+    def n_nodes(self) -> int:
+        return int(self.bvh_prim.shape[0])
 
-def device_scene(host: dict, device="cpu") -> SceneData:
+
+def device_scene(host: dict, device="cuda") -> SceneData:
     """Assemble a SceneData on `device` from a dict of numpy arrays (the
     fields the port reads)."""
     def arr(key, dt=torch.float32):
@@ -79,9 +96,13 @@ def device_scene(host: dict, device="cpu") -> SceneData:
         mat_type=arr("mat_type", torch.int32),
         prim_type=arr("prim_type", torch.int32),
         prim_vidx=arr("prim_vidx", torch.int32),
+        prim_mat=arr("prim_mat", torch.int32),
         tri_v0=arr("tri_v0"),
         tri_e1=arr("tri_e1"),
         tri_e2=arr("tri_e2"),
+        vtx_pos=arr("vtx_pos"),
+        vtx_normal=arr("vtx_normal"),
+        vtx_uv=arr("vtx_uv"),
         shape_type=arr("shape_type", torch.int32),
         shape_pos=arr("shape_pos"),
         shape_param=arr("shape_param"),
@@ -93,6 +114,10 @@ def device_scene(host: dict, device="cpu") -> SceneData:
         cluster_bounds=cluster_bounds,
         cluster_tri=arr("cluster_tri"),
         super_bounds=super_table(cluster_bounds),
+        bvh_min=arr("bvh_min"),
+        bvh_max=arr("bvh_max"),
+        bvh_prim=arr("bvh_prim", torch.int32),
+        bvh_escape=arr("bvh_escape", torch.int32),
         aabb_min=arr("aabb_min"),
         aabb_max=arr("aabb_max"),
         n_prims=P,

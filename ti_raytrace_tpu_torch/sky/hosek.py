@@ -10,8 +10,9 @@ linear interpolation between the two neighbouring bands, over planar
 wavefronts.  The per-band values are computed densely (11 bands of
 elementwise math); each wavelength row then reads its two bands by an
 index gather, where the reference sums over one-hot masks.  The solar
-disc's limb darkening is off the render path in the reference and is not
-ported.
+disc's limb-darkened radiance is a host oracle only
+(`solar_disc_radiance_np`): it is off the render path, as in the
+reference.
 """
 
 from dataclasses import dataclass
@@ -30,6 +31,8 @@ GAMMA_NUM = 6
 MIN_LAMBDA = 320.0
 MAX_LAMBDA = 720.0
 BAND_STEP = 40.0
+PIECES = 45
+ORDER = 4
 
 
 def _load_csv(rel, cols):
@@ -176,3 +179,51 @@ def sky_radiance_hero(sky_configs, sky_radiances, theta, gamma, lam):
         )
         out.append(torch.where(inside, v, 0.0))
     return torch.stack(out, dim=0)
+
+
+def solar_disc_radiance_np(sky: SkyModel, lam, elevation, gamma):
+    """Limb-darkened solar disc radiance at wavelength lam (nm), for a
+    sun at `elevation` seen at angle gamma from its centre (0 outside the
+    disc): the piecewise polynomial of assets/sky/data_solar.csv times
+    the darkening polynomial of data_dark.csv.  Host oracle only."""
+    data_solar = _load_csv("sky/data_solar.csv", TURB_NUM * PIECES * ORDER)
+    data_dark = _load_csv("sky/data_dark.csv", 6)
+
+    sol_rad_sin = np.sin(sky.solar_radius)
+    ar2 = 1.0 / (sol_rad_sin * sol_rad_sin)
+    sin_g = np.sin(gamma)
+    sc2 = 1.0 - ar2 * sin_g * sin_g
+    if sc2 < 0.0:
+        return 0.0
+    sample_cosine = np.sqrt(sc2)
+
+    turb_low = int(sky.turbidity) - 1
+    turb_frac = sky.turbidity - (turb_low + 1)
+    if turb_low == 9:
+        turb_low, turb_frac = 8, 1.0
+    wl_low = int((lam - 320.0) / 40.0)
+    wl_frac = (lam / 40.0) % 1.0
+    if wl_low == 10:
+        wl_low, wl_frac = 9, 1.0
+
+    def sr(turb, wl):
+        pos = min(int((2.0 * elevation / PI) ** (1.0 / 3.0) * PIECES), 44)
+        break_x = ((pos / PIECES) ** 3.0) * (PI * 0.5)
+        idx = ORDER * PIECES * turb + ORDER * (pos + 1) - 1
+        ret, x_exp = 0.0, 1.0
+        x = elevation - break_x
+        for _ in range(ORDER):
+            ret += x_exp * data_solar[wl, idx]
+            x_exp *= x
+            idx -= 1
+        return ret
+
+    dr = (1 - wl_frac) * (
+        (1 - turb_frac) * sr(turb_low, wl_low) + turb_frac * sr(turb_low + 1, wl_low)
+    ) + wl_frac * (
+        (1 - turb_frac) * sr(turb_low, wl_low + 1)
+        + turb_frac * sr(turb_low + 1, wl_low + 1)
+    )
+    ld = data_dark[wl_low] * (1 - wl_frac) + data_dark[min(wl_low + 1, 10)] * wl_frac
+    darkening = sum(ld[i] * sample_cosine**i for i in range(6))
+    return dr * darkening

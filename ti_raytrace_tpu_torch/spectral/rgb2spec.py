@@ -5,16 +5,18 @@ maps linear RGB to (c0, c1, c2).
 
 `fetch` runs on the host: materials are few, so scene/build.py bakes
 per-material coefficients into the packed attribute tables
-(scene/packs.py) and the render loop never touches the table.  The
-device-side sigmoid is `integrators.pt_spec._eval_rgb2spec`.  The table
-is read from assets/spec_table.npz; this package never fits one (the
-fit, `spectral/jakob_fit.py` of the reference, is not ported).
+(scene/packs.py) and the render loop never touches the table.
+`eval_hero` is the sigmoid on device lanes, what the spectral integrators
+evaluate.  The table is read from
+assets/spec_table.npz; where it is missing, `load_table` fits it
+(spectral/jakob_fit.py, ~1 minute) and writes it there.
 """
 
 import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 N_COEFFS = 3
 RES = 64
@@ -24,6 +26,15 @@ TABLE_PATH = os.path.join(
     "assets",
     "spec_table.npz",
 )
+
+
+def smoothstep(x):
+    return x * x * (3.0 - 2.0 * x)
+
+
+def scale_lattice(res: int = RES) -> np.ndarray:
+    """The non-uniform z lattice: smoothstep(smoothstep(i / (res - 1)))."""
+    return smoothstep(smoothstep(np.arange(res, dtype=np.float64) / (res - 1)))
 
 
 @dataclass
@@ -78,13 +89,45 @@ def eval_np(coeffs, lam):
     return 0.5 * x / np.sqrt(x * x + 1.0) + 0.5
 
 
-def load_table(path: str | None = None) -> Rgb2SpecTable:
+def eval_hero(c0, c1, c2, lam):
+    """The sigmoid on device lanes: coefficient rows (N,), lam (K, N) or
+    (N,) -> spectrum values of lam's shape."""
+    x = (c0 * lam + c1) * lam + c2
+    return 0.5 * x * torch.rsqrt(x * x + 1.0) + 0.5
+
+
+def save_table(table: Rgb2SpecTable, path: str) -> None:
+    """Write `table` as the npz that load_table reads (atomically)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp.npz"  # np.savez_compressed appends .npz
+    np.savez_compressed(tmp, res=table.res, scale=table.scale, data=table.data)
+    os.replace(tmp, path)
+
+
+def load_table(path: str | None = None, generate: bool = True) -> Rgb2SpecTable:
     """The coefficient table of `path` (default: assets/spec_table.npz).
-    A missing file raises FileNotFoundError."""
+    A missing file is fitted at RES (spectral/jakob_fit.fit_table) and
+    written there with generate=True, and raises FileNotFoundError with
+    generate=False."""
     p = path or TABLE_PATH
-    if not os.path.exists(p):
-        raise FileNotFoundError(
-            f"{p}: the rgb2spec coefficient table is missing (it ships with the "
-            f"repository; the fit that makes it is not part of this package)")
-    with np.load(p) as z:
-        return Rgb2SpecTable(int(z["res"]), z["scale"], z["data"])
+    if os.path.exists(p):
+        with np.load(p) as z:
+            return Rgb2SpecTable(int(z["res"]), z["scale"], z["data"])
+    if not generate:
+        raise FileNotFoundError(f"{p}: the rgb2spec coefficient table is missing")
+    from ti_raytrace_tpu_torch.spectral.jakob_fit import fit_table
+
+    table = fit_table(RES)
+    save_table(table, p)
+    return table
+
+
+def load_reference_format(path: str) -> Rgb2SpecTable:
+    """Read the text format of the original renderer's spec_table: res,
+    then res scale lines, then res^3 * 3 lines of 9 floats (three
+    coefficient triples a line)."""
+    with open(path) as f:
+        res = int(f.readline())
+        scale = np.array([float(f.readline()) for _ in range(res)])
+        vals = np.loadtxt(f).reshape(-1)[: res * res * res * 9]
+    return Rgb2SpecTable(res, scale, vals.reshape(3, res, res, res, 3))

@@ -94,6 +94,13 @@ def hero_bin(u):
     return torch.clamp((u * HERO_BINS).to(torch.int32), max=HERO_BINS - 1).long()
 
 
+def hero_onehot(u):
+    """(NB, N) float one-hot of the lambda0 bin of uniform u in [0, 1)
+    (the reference's matmul form of hero_bin)."""
+    b = hero_bin(u)
+    return (torch.arange(HERO_BINS, device=u.device)[:, None] == b[None, :]).to(torch.float32)
+
+
 def hero_select(matrix, bins):
     """(R, NB) table, (N,) int64 bins -> (R, N) per-lane hero values."""
     return matrix.index_select(1, bins)

@@ -140,7 +140,7 @@ def _diag_box_host() -> dict:
     return bld.build_host()
 
 
-def _diag_box(device="cpu"):
+def _diag_box(device="cuda"):
     """(SceneData on `device`, ExampleConfig) of the diagnostic box, seen
     from inside: distance 1 from the origin."""
     from ti_raytrace_tpu_torch.examples.scenes import ExampleConfig

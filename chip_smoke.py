@@ -11,7 +11,8 @@ veach_pt golden path), the same scene under BDPT
 the four path-traced scenes of the dense tracer (single_model,
 cornell_box, sky_dome, spectral_box) and the prism dispersion scene under
 spectral BDPT (`bdpt_spec.make_render_frame`, unsliced, the prism_rainbow
-golden path) — and holds the CUDA kernel against its plain PyTorch version
+golden path), and the five sharded paths of `parallel/shard.py` on 2
+ranks sharing the card — and holds the CUDA kernel against its plain PyTorch version
 in every mode the paths use, and the dense sweep, which is plain torch
 ops, against the cluster tracer.
 Phases, each printing its own lines; any failure exits non-zero:
@@ -131,12 +132,33 @@ Phases, each printing its own lines; any failure exits non-zero:
      multiplies by the reciprocal extent), and one 32^2 CLI run of the
      benchmark (`examples/run.py`, two merged dispatches) whose JSON line
      carries `metrics.RenderMeter.report()`'s fields.
+ 24. sharded rendering (`parallel/dryrun.dryrun_multichip`): 2 ranks
+     spawned once on the one card (gloo, CUDA tensors), every section at
+     512^2 — the merged bench path (`render_film_frames_merged_sharded`,
+     benchmark_100k, KF=16 in one merged group of 16, the bench schedule;
+     0 overflow kills and kernel launches on each rank), Veach BDPT
+     (`render_bdpt_frame_sharded`, MAX_DEPTH 5), cornell_box PT
+     (`render_frame_sharded` with `pt_rgb.trace_paths`), sky_dome spectral
+     PT (`render_frame_spec_sharded`) and prism_rainbow spectral BDPT
+     (`render_bdpt_spec_frame_sharded`), 1 frame each; each rank's image
+     bit-equal to the parent's per-shard mirror (the shards rendered one
+     after the other in this process), finite and not black; the Veach
+     frame against the production `bdpt_rgb.render_frame_sliced` in 2
+     slices (expected bit-equal; at most SHARD_PIXEL_FRAC of the pixels
+     beyond rtol 1e-5: the ranks trace eye and light walks apart, and a
+     t-tie may resolve otherwise in another wavefront); the kernel vs
+     cluster_trace_plain on a rank's camera slice (131,072 lanes of the
+     morton order, shared origin) with phase 3's bar; then the merged
+     section on 1 rank over NCCL.  Per section the ranks' ms/frame, the
+     mirror's, the ranks' start-up seconds and one all_reduce of the
+     image's size per rank (recorded, not gated).
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
 PLAIN_TILES tiles to bound its memory.  The next-to-last line is a JSON
 object describing the kernel (launches summed over the counted runs of
-the three paths that reach it, max_abs_err the worst over every compared wavefront, ms,
+the three paths that reach it and over the ranks of phase 24, max_abs_err
+the worst over every compared wavefront, ms,
 plain_ms and bound_ms of the bench camera wavefront, and each compared
 wavefront's figures with its width's launches per frame in its path's
 counted run, and phase 22's agreement with the oracle per wavefront);
@@ -163,6 +185,9 @@ DENSE_GROUPS = 1  # timed single_model groups of 16 frames
 CORNELL_FRAMES = 8
 SPEC_FRAMES = 4
 PRISM_FRAMES = 2
+SHARD_RANKS = 2  # phase 24: ranks on the one card
+SHARD_TIMEOUT = 300.0  # s: the ranks' join, rendezvous and collective limit
+SHARD_PIXEL_FRAC = 1e-3  # Veach 2-rank vs sliced: pixels allowed beyond rtol 1e-5
 DENSE_REPS = 3   # timed traces per tracer in phase 13
 PLAIN_TILES = 1024  # tiles per block of the plain version
 T_RTOL = 1e-5
@@ -1007,6 +1032,98 @@ def phase_native(host, root):
         fail("the CLI's JSON line lacks the render meter's report")
 
 
+def phase_sharded(sync):
+    """Phase 24: the five sharded paths on 2 ranks (gloo) held to their
+    per-shard mirror, Veach against the sliced production frame, the
+    kernel on a rank's camera slice, and the merged path on 1 rank over
+    NCCL.  Returns (kernel launches of the ranks, the "sharded" rows)."""
+    import numpy as np
+    import torch
+
+    from ti_raytrace_tpu_torch.core import rng
+    from ti_raytrace_tpu_torch.examples.scenes import example_cached, make_camera
+    from ti_raytrace_tpu_torch.integrators import bdpt_rgb
+    from ti_raytrace_tpu_torch.parallel import dryrun, shard
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import recording
+
+    tag = "[24 sharded]"
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(SHARD_RANKS, device="cuda", size=SIZE, frames=KF,
+                                  timeout=SHARD_TIMEOUT)
+    log(f"{tag} {SHARD_RANKS} ranks on one card: all five sections bit-equal to the "
+        f"per-shard mirror in {time.perf_counter() - t0:.1f} s; ranks joined after "
+        + ", ".join(f"{s:.2f}" for s in res["start_s"]) + " s; one all_reduce of a (3, "
+        f"{SIZE}^2) float32 image " + ", ".join(f"{t:.3f}" for t in res["all_reduce_ms"])
+        + " ms per rank")
+    for section in dryrun.SECTIONS:
+        r = res[section]
+        log(f"{tag} {section} ({r['backend']}): {r['frames']} frame(s) at {SIZE}^2, "
+            f"{max(r['seconds']) / r['frames'] * 1e3:.3f} ms/frame on the {SHARD_RANKS} ranks "
+            f"together, {r['mirror_seconds'] / r['frames'] * 1e3:.3f} ms/frame shard after "
+            f"shard in one process; overflow {r['overflow']}; kernel launches per rank "
+            f"{r['launches']}; image mean {float(r['img'].mean()):.5f}")
+        if r["backend"] != "gloo":
+            fail(f"{SHARD_RANKS} ranks on one card ran {r['backend']}, not gloo")
+    merged = res["merged"]
+    if merged["overflow"] != 0:
+        fail(f"{merged['overflow']} overflow kills on the sharded merged path")
+    if min(merged["launches"]) == 0:
+        fail(f"a rank of the sharded merged path launched no kernel: {merged['launches']}")
+    if min(res["bdpt"]["launches"]) == 0:
+        fail("a rank of the sharded Veach BDPT launched no kernel")
+
+    scene, cfg = example_cached("veach_bdpt", "cuda")
+    spec, cam = make_camera(scene, cfg, SIZE, SIZE)
+    t0 = time.perf_counter()
+    want, ov = bdpt_rgb.render_frame_sliced(scene, spec, cam, 1, rng.PRNGKey(dryrun.SEED),
+                                            n_slices=SHARD_RANKS, return_overflow=True)
+    sync()
+    ms_sliced = (time.perf_counter() - t0) * 1e3
+    want = want.cpu().numpy()
+    got = res["bdpt"]["img"]
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    off = int((~np.isclose(got, want, rtol=1e-5, atol=0.0)).any(axis=-1).sum())
+    log(f"{tag} Veach BDPT, {SHARD_RANKS} ranks vs render_frame_sliced({SHARD_RANKS}) "
+        f"({ms_sliced:.3f} ms): {int((got != want).any(axis=-1).sum())} pixels differ, "
+        f"{off} beyond rtol 1e-5, max rel diff {float(rel.max()):.3e}; overflow "
+        f"{res['bdpt']['overflow']} vs {int(ov)}")
+    if off > SHARD_PIXEL_FRAC * SIZE * SIZE or res["bdpt"]["overflow"] != int(ov):
+        fail("the sharded Veach BDPT frame disagrees with the sliced production frame")
+    del scene
+
+    # the kernel on rank 0's camera slice: the shared-origin mode on the
+    # rank's interleaved 256-lane morton blocks of the film
+    scene, cfg = example_cached("benchmark_100k", "cuda")
+    spec, cam = make_camera(scene, cfg, SIZE, SIZE)
+    mesh = shard.Mesh(0, SHARD_RANKS, scene.device)
+    px, py = shard.shard_pixels(spec, mesh)
+    n = px.shape[0]
+    with recording() as calls:
+        shard._merged_lane_shard(scene, spec, cam, torch.zeros((3, n), device=scene.device),
+                                 0, rng.PRNGKey(dryrun.SEED), 0, px, py, 1, 1,
+                                 cfg.compaction, False, max_depth=1)
+    if not calls or calls[0][2] != n or not calls[0][6]:
+        fail("the rank's camera slice did not reach the kernel in the shared-origin mode")
+    err, row = _compare(f"rank 0 camera slice of {SHARD_RANKS} (shared origin, origin-MT)",
+                        calls[0], tag)
+    row["launches_per_frame"] = sum(w.get(n, 0) for w in merged["launches_by_width"]) / KF
+    del scene, calls
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    one = dryrun.dryrun_multichip(1, device="cuda", size=SIZE, frames=KF, sections=("merged",),
+                                  timeout=SHARD_TIMEOUT)
+    r = one["merged"]
+    log(f"{tag} merged on 1 rank ({r['backend']}): {max(r['seconds']) / KF * 1e3:.3f} "
+        f"ms/frame, overflow {r['overflow']}, kernel launches {r['launches']}, equal to its "
+        f"mirror; joined after {one['start_s'][0]:.2f} s, one all_reduce of the image "
+        f"{one['all_reduce_ms'][0]:.3f} ms, {time.perf_counter() - t0:.1f} s in all")
+    if r["backend"] != "nccl" or r["overflow"] != 0 or r["launches"][0] == 0:
+        fail("the 1-rank NCCL run of the merged path did not pass")
+    launches = sum(sum(res[s]["launches"]) for s in dryrun.SECTIONS) + r["launches"][0]
+    return launches, err, [row]
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -1082,10 +1199,13 @@ def main():
     oracle_rows = phase_oracle(oracle_waves, sync)
     del oracle_waves
     phase_native(host, root)
+    n, err_s, shard_rows = phase_sharded(sync)
+    launches += n
+    max_err = max(max_err, err_s)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
-             ("prism_rainbow", prism_rows))
+             ("prism_rainbow", prism_rows), ("sharded", shard_rows))
     print(json.dumps({"kernels": [{
         "name": "cluster_trace",
         "route": "cuda",

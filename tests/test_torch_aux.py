@@ -224,13 +224,17 @@ def test_solar_disc_matches_reference():
 CUDA_DEFAULTS = {
     "ti_raytrace_tpu_torch.examples.scenes": (
         "benchmark_100k", "veach_bdpt", "cornell_box", "single_model", "sky_dome",
-        "spectral_box", "prism_rainbow"),
+        "spectral_box", "prism_rainbow", "example_cached"),
+    "ti_raytrace_tpu_torch.examples.preview": ("OrbitRig",),
+    "ti_raytrace_tpu_torch.parallel.shard": ("make_mesh", "init_mesh"),
+    "ti_raytrace_tpu_torch.parallel.dryrun": ("dryrun_multichip",),
     "ti_raytrace_tpu_torch.scene.data": ("device_scene",),
     "ti_raytrace_tpu_torch.film": ("new_film", "load_checkpoint"),
     "ti_raytrace_tpu_torch.integrators.bdpt_spec": ("make_spec_ctx_fn", "make_render_frame"),
     "ti_raytrace_tpu_torch.integrators.pt_spec": ("make_spectral_data", "make_render_frame"),
     "ti_raytrace_tpu_torch.tools.bdpt_decompose": ("_diag_box",),
-    "ti_raytrace_tpu_torch.camera": ("orbit_camera",),
+    "ti_raytrace_tpu_torch.camera": ("orbit_camera", "orbit_yaw", "orbit_pitch",
+                                     "frame_scene_camera"),
     "ti_raytrace_tpu_torch.accel.lbvh": ("build_bvh",),
 }
 

@@ -16,6 +16,8 @@ before densification.  Tolerances, with their reasons:
     of the reference (same key chain, same phases), rtol 1e-5.
 """
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -177,8 +179,9 @@ def test_overflow_kills_are_counted(scenes):
 
 
 def test_unported_paths_raise(scenes, capsys):
-    """What is still outside the port raises, naming its ROADMAP item: the
-    CLI's live preview.  The BDPT tracer modes, the corrected estimator,
+    """Nothing of the CLI is outside the port any more: its live preview
+    runs where pygame is installed and, where it is not (the card's
+    machine), raises pygame's own ImportError.  The BDPT tracer modes, the corrected estimator,
     compaction calibration, the dense tracer, the spectral path tracer,
     and now the prism scene (as a CLI scene and as a golden target) and
     the spectral BDPT that renders it, run."""
@@ -213,7 +216,8 @@ def test_unported_paths_raise(scenes, capsys):
               "--device", "cpu", "--out", "/dev/null"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["integrator"] == "bdpt_spec" and line["frames"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP 'to port': auxiliary modules"):
+    with pytest.MonkeyPatch.context() as mp, pytest.raises(ImportError, match="pygame"):
+        mp.setitem(sys.modules, "pygame", None)
         run.main(["benchmark_100k", "--preview", "--size", "8", "--device", "cpu"])
     with pytest.raises(ValueError, match="compaction schedule"):
         tpt.render_film_frames_merged(ts, spec, cam, fl, 1, 1, None)

@@ -76,6 +76,30 @@ def orbit_camera(target, yaw: float, pitch: float, scale: float,
     return CameraState(view=f32(view), view_inv=f32(np.linalg.inv(view)), eye=f32(eye))
 
 
+def orbit_yaw(target, yaw: float, pitch: float, scale: float, step=0.003, limit=3.14,
+              device="cuda"):
+    """One step of the yaw orbit animation: (new_yaw, CameraState); the
+    yaw stops growing once it reaches `limit`."""
+    new_yaw = yaw + step if yaw < limit else yaw
+    return new_yaw, orbit_camera(target, new_yaw, pitch, scale, device=device)
+
+
+def orbit_pitch(target, yaw: float, pitch: float, scale: float, step=0.003, limit=0.5,
+                device="cuda"):
+    """One step of the pitch orbit animation: (new_pitch, CameraState)."""
+    new_pitch = pitch + step if pitch < limit else pitch
+    return new_pitch, orbit_camera(target, yaw, new_pitch, scale, device=device)
+
+
+def frame_scene_camera(aabb_min, aabb_max, yaw=0.0, pitch=0.0, device="cuda") -> CameraState:
+    """The examples' framing rule: aim at the box centre from 0.8 times its
+    diagonal away."""
+    aabb_min = np.asarray(aabb_min, np.float64)
+    aabb_max = np.asarray(aabb_max, np.float64)
+    scale = float(np.linalg.norm(aabb_max - aabb_min)) * 0.8
+    return orbit_camera(0.5 * (aabb_min + aabb_max), yaw, pitch, scale, device=device)
+
+
 def ray_origins(spec: CameraSpec, cam: CameraState) -> torch.Tensor:
     """(W*H, 3) origins (every lane at the eye)."""
     return cam.eye.expand(spec.width * spec.height, 3)

@@ -41,16 +41,23 @@ report (fps, spp_per_s, mrays_per_s, avg_frame_ms, compile_s) and the
 overflow count (compaction
 kills for the path tracers, the walk compaction overflow plus capped
 shadow lanes for BDPT; non-zero means live paths were cut: a bias).
+`--preview` opens a pygame window (examples/preview.py) and renders one
+frame per call, showing the film and frame/total and fps after each; an
+orbit move restarts the accumulation, q or ESC ends the run.  It needs
+pygame and a display: without pygame it raises pygame's ImportError.
 """
 
 import argparse
+import functools
 import json
 import time
 
+import numpy as np
 import torch
 
 from ti_raytrace_tpu_torch import film as film_mod
-from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
+from ti_raytrace_tpu_torch.examples.preview import OrbitRig, PygamePreview
+from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, framing_params, make_camera
 from ti_raytrace_tpu_torch.integrators import bdpt_rgb, bdpt_spec, debug, pt_rgb, pt_spec
 from ti_raytrace_tpu_torch.metrics import RenderMeter
 
@@ -71,6 +78,32 @@ def spectral_data(cfg, integrator: str, device):
             **cfg.sky, walk_compaction=cfg.bdpt_walk_compaction,
             shadow_cap=cfg.bdpt_shadow_cap, device=device)
     return None
+
+
+def get_integrator(name: str, cfg_sky=None, compaction=None, scene=None, cfg=None):
+    """A render_frame(scene, spec, cam, frame, key) -> (W, H, 3) of one
+    progressive frame by integrator `name`, as the CLI configures it: the
+    path tracer with `compaction` and NEE by the scene's materials (on
+    when no scene is given), the spectral path tracer with the sky
+    parameters `cfg_sky`, BDPT in 2 slices and the spectral BDPT with the
+    config's walk compaction and shadow cap; the spectral tables on the
+    scene's device (the card when no scene is given)."""
+    device = scene.device if scene is not None else "cuda"
+    if name == "pt_rgb":
+        nee = pt_rgb.has_nee_materials(scene) if scene is not None else True
+        return functools.partial(pt_rgb.render_frame, compaction=compaction, nee=nee)
+    if name == "debug":
+        return debug.render_frame
+    if name == "pt_spec":
+        return pt_spec.make_render_frame(**(cfg_sky or {}), compaction=compaction,
+                                         device=device)
+    bdpt = dict(walk_compaction=cfg.bdpt_walk_compaction if cfg else None,
+                shadow_cap=cfg.bdpt_shadow_cap if cfg else None)
+    if name == "bdpt_rgb":
+        return functools.partial(bdpt_rgb.render_frame_sliced, n_slices=2, **bdpt)
+    if name == "bdpt_spec":
+        return bdpt_spec.make_render_frame(**(cfg_sky or {}), **bdpt, device=device)
+    raise ValueError(f"unknown integrator {name!r} (integrators: {', '.join(INTEGRATORS)})")
 
 
 def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int = 0,
@@ -124,13 +157,12 @@ def main(argv=None):
     ap.add_argument("--snapshot-every", type=int, default=64,
                     help="write the PNG (and the checkpoint) every so many frames")
     ap.add_argument("--checkpoint", default=None, help="save/resume .npz path")
-    ap.add_argument("--preview", action="store_true", help="live window (not ported)")
+    ap.add_argument("--preview", action="store_true",
+                    help="live window with orbit controls (needs pygame and a display); "
+                         "moving the camera restarts the accumulation")
     args = ap.parse_args(argv)
     if args.snapshot_every < 1:
         raise ValueError(f"--snapshot-every {args.snapshot_every} is not a positive count")
-    if args.preview:
-        raise NotImplementedError("--preview is outside the ported slice (ROADMAP 'to "
-                                  "port': auxiliary modules, examples/preview.py)")
     if args.example not in EXAMPLES:
         raise ValueError(f"unknown scene {args.example!r} (scenes: {sorted(EXAMPLES)})")
 
@@ -144,11 +176,13 @@ def main(argv=None):
     pt = integrator == "pt_rgb"
     nee = pt_rgb.has_nee_materials(scene) if pt else None
     group = args.group or cfg.group or 0
-    merged = pt and bool(cfg.compaction) and group > 1
+    merged = pt and bool(cfg.compaction) and group > 1 and not args.preview
     if merged:
         batch = group
+    elif args.preview or integrator == "debug":
+        batch = 1
     else:
-        batch = 1 if integrator == "debug" else cfg.batch or (4 if integrator in BDPT else 8)
+        batch = cfg.batch or (4 if integrator in BDPT else 8)
     sdata = spectral_data(cfg, integrator, device)
 
     fl = film_mod.new_film(args.size, args.size, seed=args.seed, device=device)
@@ -158,6 +192,11 @@ def main(argv=None):
             print(f"resumed at frame {fl.frame}", flush=True)
         except FileNotFoundError:
             pass
+    preview = None
+    if args.preview:
+        rig = OrbitRig(*framing_params(scene, cfg), device=device)
+        cam = rig.camera()
+        preview = PygamePreview(rig, args.size, args.size, cfg.name)
     kills, times, counts = 0, [], []
     meter = RenderMeter(args.size * args.size)
     while fl.frame < args.frames:
@@ -173,10 +212,24 @@ def main(argv=None):
         print(f"frame {fl.frame}/{args.frames}  {times[-1] / n * 1e3:.3f} ms/frame"
               f"  {'walk overflow' if integrator in BDPT else 'overflow kills'} {ov}",
               flush=True)
+        if preview is not None:
+            srgb = film_mod.to_srgb(fl, exposure=cfg.exposure).cpu().numpy()
+            preview.show((srgb * 255.0).astype(np.uint8))
+            preview.set_hud(fl.frame, args.frames, meter.fps)
+            action = preview.poll()
+            if action == "quit":
+                break
+            if action == "camera":  # an orbit move restarts the accumulation
+                cam = rig.camera()
+                fl = film_mod.new_film(args.size, args.size, seed=args.seed, device=device)
+                continue
         if fl.frame % args.snapshot_every == 0 or fl.frame == args.frames:
             film_mod.save_png(fl, args.out, exposure=cfg.exposure)
             if args.checkpoint:
                 film_mod.save_checkpoint(fl, args.checkpoint)
+    if preview is not None:
+        preview.close()
+        film_mod.save_png(fl, args.out, exposure=cfg.exposure)
     if not times:  # a checkpoint at or past --frames: nothing left to render
         film_mod.save_png(fl, args.out, exposure=cfg.exposure)
         times, counts = [0.0], [1]

@@ -3,7 +3,8 @@
 of the dense tracer (cornell_box, single_model, sky_dome, spectral_box)
 and the prism dispersion demo under spectral BDPT (prism_rainbow).  Each
 `*_host` function builds the scene's host dict; each scene function returns
-(SceneData on `device`, ExampleConfig).  The schedules, groups and
+(SceneData on `device`, ExampleConfig), from `host` where given (the
+cached dict of `example_cached`).  The schedules, groups and
 batches are the reference's, sized there for zero overflow kills (the
 occupancy they rest on belongs to the scene and the random stream); the
 port reports its own kill count."""
@@ -89,25 +90,32 @@ def benchmark_100k_host(n_target: int = 100_000) -> dict:
     return b.build_host()
 
 
-def benchmark_100k_cached_host(n_target: int = 100_000) -> dict:
-    """benchmark_100k_host, cached under .cache/ keyed by the triangle
-    target and BUILD_FORMAT_VERSION (a file name of its own, apart from the
-    reference's cache); a cache written before this builder made the BVH
-    (no `bvh_prim`) is a miss and is rebuilt."""
+def cached_host_build(key: str, make_host) -> dict:
+    """Host dict from `make_host()` through an npz cache under .cache/,
+    keyed by `key` and BUILD_FORMAT_VERSION (file names of the port's own,
+    apart from the reference's caches).  A cache written before the
+    builder made the BVH (no `bvh_prim`) is a miss and is rebuilt; a new
+    cache is published atomically, so concurrent ranks building the same
+    scene never read a torn file."""
     from ti_raytrace_tpu_torch.scene.build import BUILD_FORMAT_VERSION
 
-    path = os.path.join(_CACHE_DIR,
-                        f"torch_bench_scene_{n_target}_v{BUILD_FORMAT_VERSION}.npz")
+    path = os.path.join(_CACHE_DIR, f"torch_{key}_v{BUILD_FORMAT_VERSION}.npz")
     if os.path.exists(path):
         with np.load(path) as z:
             if "bvh_prim" in z.files:
                 return {k: z[k] for k in z.files}
-    host = benchmark_100k_host(n_target)
+    host = make_host()
     os.makedirs(_CACHE_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp.npz"  # np.savez appends .npz
     np.savez(tmp, **host)
     os.replace(tmp, path)  # atomic publish: a torn npz is never read
     return host
+
+
+def benchmark_100k_cached_host(n_target: int = 100_000) -> dict:
+    """benchmark_100k_host through cached_host_build, keyed by the
+    triangle target."""
+    return cached_host_build(f"bench_scene_{n_target}", lambda: benchmark_100k_host(n_target))
 
 
 def benchmark_100k(device="cuda", n_target: int = 100_000):
@@ -129,7 +137,7 @@ def veach_host() -> dict:
     return b.build_host(smooth_normals=True)
 
 
-def veach_bdpt(device="cuda"):
+def veach_bdpt(device="cuda", host=None):
     """The Veach MIS scene (the reference's example/veach_bdpt.py).  Its
     own integrator is BDPT (`bdpt_rgb`, no walk compaction, no shadow
     cap: the exact estimator); `--integrator pt_rgb` renders it with the
@@ -137,7 +145,7 @@ def veach_bdpt(device="cuda"):
     the exact path."""
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
-    return device_scene(veach_host(), device), ExampleConfig(
+    return device_scene(veach_host() if host is None else host, device), ExampleConfig(
         "veach_bdpt", "bdpt_rgb", scale_mult=0.5)
 
 
@@ -148,12 +156,12 @@ def cornell_box_host() -> dict:
     return b.build_host()
 
 
-def cornell_box(device="cuda"):
+def cornell_box(device="cuda", host=None):
     """pt_rgb with NEE on the classic box, four compaction phases, 32
     frames per dispatch."""
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
-    return device_scene(cornell_box_host(), device), ExampleConfig(
+    return device_scene(cornell_box_host() if host is None else host, device), ExampleConfig(
         "cornell_box", "pt_rgb", scale_mult=0.8,
         compaction=((3, 2), (5, 4), (8, 8), (11, 16)), batch=32)
 
@@ -169,13 +177,13 @@ def single_model_host() -> dict:
     return b.build_host(smooth_normals=True)
 
 
-def single_model(device="cuda"):
+def single_model(device="cuda", host=None):
     """pt_rgb on the glass sphere in merged groups of 16: N/4 lanes after
     bounce 1 (about 22% of the camera rays hit the sphere), N/128 after
     bounce 3."""
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
-    return device_scene(single_model_host(), device), ExampleConfig(
+    return device_scene(single_model_host() if host is None else host, device), ExampleConfig(
         "single_model", "pt_rgb", scale_mult=0.8,
         compaction=((1, 4), (3, 128)), group=16, batch=64)
 
@@ -191,7 +199,7 @@ def sky_dome_host() -> dict:
     return b.build_host(smooth_normals=True, spectral=True)
 
 
-def sky_dome(device="cuda"):
+def sky_dome(device="cuda", host=None):
     """pt_spec: the mirror sphere under the Hosek-Wilkie sky (turbidity 3,
     albedo 0.5, elevation 0.17, the reference integrator's sky).  A
     depth-2 scene: about 4.6% of the camera rays hit the sphere and their
@@ -199,7 +207,7 @@ def sky_dome(device="cuda"):
     bounce 1."""
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
-    return device_scene(sky_dome_host(), device), ExampleConfig(
+    return device_scene(sky_dome_host() if host is None else host, device), ExampleConfig(
         "sky_dome", "pt_spec", scale_mult=2.0,
         sky=dict(turbidity=3.0, albedo=0.5, elevation=0.17),
         compaction=((1, 16),), batch=64)
@@ -216,13 +224,13 @@ def spectral_box_host() -> dict:
     return b.build_host(smooth_normals=True, spectral=True)
 
 
-def spectral_box(device="cuda"):
+def spectral_box(device="cuda", host=None):
     """pt_spec on the spectral cornell box.  emitter_scale sqrt(3): the
     scene's golden embodies a lamp scale of |Ke|_1 = 30, not the |Ke|_2 =
     17.32 of the emission formula (PARITY.md 'spectral emitter scale')."""
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
-    return device_scene(spectral_box_host(), device), ExampleConfig(
+    return device_scene(spectral_box_host() if host is None else host, device), ExampleConfig(
         "spectral_box", "pt_spec", scale_mult=0.8,
         sky=dict(turbidity=3.0, albedo=0.5, elevation=0.17,
                  emitter_scale=float(np.sqrt(3.0))),
@@ -243,7 +251,7 @@ def prism_rainbow_host() -> dict:
     return b.build_host(spectral=True)
 
 
-def prism_rainbow(device="cuda"):
+def prism_rainbow(device="cuda", host=None):
     """Spectral BDPT (`bdpt_spec`) on the prism and the laser, seen from a
     fixed distance of 10 towards the origin.  emitter_scale sqrt(3): both
     lights are gray, and the scene's golden embodies the |Ke|_1 lamp scale
@@ -255,7 +263,7 @@ def prism_rainbow(device="cuda"):
     its own overflow."""
     from ti_raytrace_tpu_torch.scene.data import device_scene
 
-    return device_scene(prism_rainbow_host(), device), ExampleConfig(
+    return device_scene(prism_rainbow_host() if host is None else host, device), ExampleConfig(
         "prism_rainbow", "bdpt_spec", fixed_scale=10.0, fixed_target=(0.0, 0.0, 0.0),
         sky=dict(emitter_scale=float(np.sqrt(3.0))),
         bdpt_walk_compaction=(((2, 1.7), (3, 5.5), (4, 10.0)),
@@ -272,6 +280,27 @@ EXAMPLES = {
     "prism_rainbow": prism_rainbow,
     "benchmark_100k": benchmark_100k,
 }
+
+
+_HOSTS = {
+    "cornell_box": cornell_box_host,
+    "single_model": single_model_host,
+    "sky_dome": sky_dome_host,
+    "spectral_box": spectral_box_host,
+    "veach_bdpt": veach_host,
+    "prism_rainbow": prism_rainbow_host,
+}
+
+
+def example_cached(name: str, device="cuda"):
+    """EXAMPLES[name](device) with the host dict through cached_host_build
+    (the benchmark has its own cache), so repeated processes (the ranks of
+    parallel/dryrun.py) load an npz instead of rebuilding the scene."""
+    if name == "benchmark_100k":
+        return benchmark_100k(device)
+    if name not in EXAMPLES:
+        raise ValueError(f"unknown scene {name!r} (scenes: {sorted(EXAMPLES)})")
+    return EXAMPLES[name](device, host=cached_host_build(f"scene_{name}", _HOSTS[name]))
 
 
 def framing_params(scene, cfg: ExampleConfig):

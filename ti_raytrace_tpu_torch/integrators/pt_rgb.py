@@ -454,16 +454,26 @@ def _image(spec, radiance, inv):
     return _to_raster(radiance, inv).T.reshape(spec.width, spec.height, 3)
 
 
+def render_frame_stats(scene, spec: CameraSpec, cam, frame: int, key, compaction=None,
+                       nee: bool = False, corrected: bool = False,
+                       max_depth: int = MAX_DEPTH):
+    """One progressive frame (1 spp) and its overflow kill count: ((W, H,
+    3) radiance, a device scalar; > 0 means the compaction schedule cut
+    live paths)."""
+    k_cam, k_path = rng.split(key)
+    o, d, inv = _camera_rays(spec, cam, frame, k_cam)
+    radiance, overflow = trace_paths(scene, o, d, k_path, compaction=compaction, nee=nee,
+                                     return_overflow=True, corrected=corrected,
+                                     camera_origin=o[:, 0], max_depth=max_depth)
+    return _image(spec, radiance, inv), overflow
+
+
 def render_frame(scene, spec: CameraSpec, cam, frame: int, key, compaction=None,
                  nee: bool = False, corrected: bool = False,
                  max_depth: int = MAX_DEPTH):
     """One progressive frame (1 spp): (W, H, 3) radiance."""
-    k_cam, k_path = rng.split(key)
-    o, d, inv = _camera_rays(spec, cam, frame, k_cam)
-    radiance = trace_paths(scene, o, d, k_path, compaction=compaction, nee=nee,
-                           corrected=corrected, camera_origin=o[:, 0],
-                           max_depth=max_depth)
-    return _image(spec, radiance, inv)
+    return render_frame_stats(scene, spec, cam, frame, key, compaction, nee, corrected,
+                              max_depth)[0]
 
 
 def render_film_frames(scene, spec: CameraSpec, cam, film, n_frames: int = 4,
@@ -485,7 +495,8 @@ def render_film_frames(scene, spec: CameraSpec, cam, film, n_frames: int = 4,
 
 
 def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
-                  nee: bool = False, max_depth: int = MAX_DEPTH, pay_divisors=None):
+                  nee: bool = False, max_depth: int = MAX_DEPTH, pay_divisors=None,
+                  gen_rays=None, lane_space: bool = False, n_lanes: int = None):
     """`group` progressive frames with their compacted deep phases merged
     into one wavefront.  Returns (summed (W, H, 3) radiance, overflow).
 
@@ -493,18 +504,27 @@ def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
     shared-origin, the rest sorted) of frame g stay on the film's
     per-frame key chain; merged bounces draw from frame 0's path key over
     the concatenated wavefront (lane g*w1 + i belongs to frame g).
-    group=1 reproduces the sequential loop (render_film_frames) exactly."""
-    N = spec.width * spec.height
+    group=1 reproduces the sequential loop (render_film_frames) exactly.
+
+    gen_rays(frame, k_cam) -> (o, d): a pinhole wavefront of n_lanes rays
+    sharing one origin, in place of the whole film's morton camera
+    wavefront (the sharded path renders each rank's interleaved blocks of
+    morton lanes, parallel/shard.py).  lane_space=True returns the summed
+    radiance as (3, n_lanes) in lane order, without the raster unpermute."""
+    N = n_lanes if n_lanes is not None else spec.width * spec.height
     b_merge, dv0 = compaction[0]
     w1 = _phase_width(N, dv0)
     dev = cam.eye.device
+    if gen_rays is None:
+        def gen_rays(frame, k_cam):
+            return _camera_rays(spec, cam, frame, k_cam)[:2]
 
     carries, accums = [], []
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     key_f = key0
     for g in range(group):
         k_cam, k_path = rng.split(key_f)
-        o, d, inv = _camera_rays(spec, cam, frame0 + g, k_cam)
+        o, d = gen_rays(frame0 + g, k_cam)
         c = _bounce(scene, _new_carry(o, d), rng.fold_in(k_path, 0), nee,
                     shared_origin=o[:, 0])
         for depth in range(1, min(b_merge, max_depth)):
@@ -546,7 +566,10 @@ def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
     env = _env_radiance(scene, acc_miss[0:3])
     radiance = acc_rad + torch.where(missed[None], env * acc_miss[3:6], 0.0)
     img_sum = radiance.reshape(3, group, N).sum(dim=1)
-    return _image(spec, img_sum, inv), overflow
+    if lane_space:
+        return img_sum, overflow
+    _, inv = morton_pixel_order(spec.width, spec.height)
+    return _image(spec, img_sum, torch.as_tensor(inv, dtype=torch.int64, device=dev)), overflow
 
 
 def render_film_frames_merged(scene, spec: CameraSpec, cam, film,

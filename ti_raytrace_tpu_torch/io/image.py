@@ -112,3 +112,8 @@ def film_to_image(film_xy: np.ndarray) -> np.ndarray:
     """Film layout (W, H, 3) indexed [x, y], y=0 at the bottom -> a
     top-row-first (H, W, 3) image."""
     return np.transpose(np.asarray(film_xy), (1, 0, 2))[::-1]
+
+
+def image_to_film(img: np.ndarray) -> np.ndarray:
+    """Inverse of film_to_image."""
+    return np.transpose(np.asarray(img)[::-1], (1, 0, 2))

@@ -11,6 +11,11 @@ def p3(x, y, z):
     return torch.stack([x, y, z], dim=0)
 
 
+def splat(v, n):
+    """Constant 3-vector -> (3, n) planar (a broadcast view)."""
+    return torch.as_tensor(v, dtype=torch.float32)[:, None].expand(3, n)
+
+
 def dot(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
@@ -42,6 +47,20 @@ def reflect(i, n):
 def where(mask, a, b):
     """Select planar vectors by a (...,) lane mask."""
     return torch.where(mask[None], a, b)
+
+
+def scale(a, s):
+    return a * s[None]
+
+
+def from_rows(origin_nx3):
+    """(N, 3) -> (3, N)."""
+    return origin_nx3.T
+
+
+def to_rows(a):
+    """(3, N) -> (N, 3)."""
+    return a.T
 
 
 def sign_nonzero(x):

@@ -26,10 +26,12 @@ from ti_raytrace_tpu_torch.texture.texture import pack_blocks
 @dataclass(frozen=True)
 class SceneData:
     mat_type: torch.Tensor      # (M,) int32 MAT_DISNEY/GLASS/LIGHT/SPECTRAL
+    mat_color: torch.Tensor     # (M,3) f32 colour / emission (scene/sample.py)
     # --- primitives (P,): what the dense sweep reads (ops/dense_trace.py)
     prim_type: torch.Tensor     # (P,) int32 PRIM_TRI / PRIM_SHAPE
     prim_vidx: torch.Tensor     # (P,) int32 base vertex index | shape index
     prim_mat: torch.Tensor      # (P,) int32 material index
+    prim_area: torch.Tensor     # (P,) f32 surface area (scene/sample.py)
     tri_v0: torch.Tensor        # (P,3) f32 (zero rows for shape prims)
     tri_e1: torch.Tensor        # (P,3) f32 v1 - v0
     tri_e2: torch.Tensor        # (P,3) f32 v2 - v0
@@ -48,6 +50,7 @@ class SceneData:
     # --- packed per-primitive shading table (scene/packs.py)
     prim_attr: torch.Tensor     # (PRIM_A, P) f32
     light_attr: torch.Tensor    # (LIGHT_A, L) f32 per-light sampling pack
+    light_prim: torch.Tensor    # (L,) int32 primitive id of each emitter
     # --- cluster acceleration (accel/clusters.py)
     cluster_bounds: torch.Tensor  # (8, C) f32
     cluster_tri: torch.Tensor     # (12, C*B) f32
@@ -94,9 +97,11 @@ def device_scene(host: dict, device="cuda") -> SceneData:
     cluster_bounds = arr("cluster_bounds")
     return SceneData(
         mat_type=arr("mat_type", torch.int32),
+        mat_color=arr("mat_color"),
         prim_type=arr("prim_type", torch.int32),
         prim_vidx=arr("prim_vidx", torch.int32),
         prim_mat=arr("prim_mat", torch.int32),
+        prim_area=arr("prim_area"),
         tri_v0=arr("tri_v0"),
         tri_e1=arr("tri_e1"),
         tri_e2=arr("tri_e2"),
@@ -111,6 +116,7 @@ def device_scene(host: dict, device="cuda") -> SceneData:
         env_power=arr("env_power"),
         prim_attr=arr("prim_attr"),
         light_attr=arr("light_attr"),
+        light_prim=arr("light_prim", torch.int32),
         cluster_bounds=cluster_bounds,
         cluster_tri=arr("cluster_tri"),
         super_bounds=super_table(cluster_bounds),

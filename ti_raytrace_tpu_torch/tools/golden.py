@@ -78,6 +78,15 @@ def render_scene(name: str, frames: int, size: int, integrator, device) -> tuple
     return np.clip(srgb, 0.0, 1.0), seconds
 
 
+def load_reference(rel: str) -> np.ndarray:
+    """A reference image from assets/ as float32 RGB in [0, 1], (H, W, 3),
+    row 0 at the top."""
+    from ti_raytrace_tpu_torch.io.assets import asset_path
+    from ti_raytrace_tpu_torch.io.image import read_image
+
+    return read_image(asset_path(rel))
+
+
 def mean_abs_diff(img: np.ndarray, ref: np.ndarray) -> float:
     """Mean |film - reference| over the tone-mapped image, the reference
     nearest-resized to the render's resolution."""
@@ -94,8 +103,7 @@ def mean_abs_diff(img: np.ndarray, ref: np.ndarray) -> float:
 
 
 def main(argv=None):
-    from ti_raytrace_tpu_torch.io.assets import asset_path
-    from ti_raytrace_tpu_torch.io.image import film_to_image, read_image, write_png
+    from ti_raytrace_tpu_torch.io.image import film_to_image, write_png
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -112,7 +120,7 @@ def main(argv=None):
     with open(BOUNDS_PATH) as f:
         bound = json.load(f)[args.scene]
     img, seconds = render_scene(scene_name, frames, args.size, integrator, device)
-    ref = read_image(asset_path(rel))
+    ref = load_reference(rel)
     diff = mean_abs_diff(img, ref)
     if args.out:
         write_png(args.out, film_to_image(img))

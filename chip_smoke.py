@@ -12,13 +12,16 @@ the four path-traced scenes of the dense tracer (single_model,
 cornell_box, sky_dome, spectral_box) and the prism dispersion scene under
 spectral BDPT (`bdpt_spec.make_render_frame`, unsliced, the prism_rainbow
 golden path), and the five sharded paths of `parallel/shard.py` on 2
-ranks sharing the card — and holds the CUDA kernel against its plain PyTorch version
-in every mode the paths use, and the dense sweep, which is plain torch
-ops, against the cluster tracer.
+ranks sharing the card — and holds both CUDA kernels against their plain
+PyTorch versions: the cluster kernel (csrc/cluster_trace.cu) in every
+mode the paths use, and the dense sweep's kernel (csrc/dense_trace.cu)
+on the dense paths' wavefronts, bit for bit; and the dense tracer
+against the cluster tracer.
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
-  2. kernel build: csrc/cluster_trace.cu compiled with nvcc, timed;
+  2. kernel build: csrc/cluster_trace.cu and csrc/dense_trace.cu, one
+     nvcc for each, started together, timed, with ptxas's registers;
   3. kernel vs cluster_trace_plain on the bench's own wavefronts, recorded
      at the tracer during one merged group of the main path (16 frames):
      the 512^2 camera wavefront (shared origin, origin-MT table) and the
@@ -55,18 +58,24 @@ Phases, each printing its own lines; any failure exits non-zero:
  12. single_model (2,281 prims: the dense tracer) at 512^2 in merged groups
      of 16 with its schedule: a warm-up group, recorded at the dense
      tracer, then DENSE_GROUPS timed groups; zero overflow kills, a finite
-     non-negative HDR with mean > 0, ms/frame, and no launch of the
-     cluster kernel (the dispatch took the dense tracer);
+     non-negative HDR with mean > 0, ms/frame, no launch of the cluster
+     kernel (the dispatch took the dense tracer) and launches of the dense
+     kernel (its launches per frame by width, from its wrapper's counts,
+     reset just before the timed run);
  13. dense vs cluster on the recorded camera wavefront (262,144 lanes) and
-     merged bounce-1 wavefront (1,048,576 lanes): `dense_trace.trace_shaded`
-     and, called directly, `trace_clustered` on the same scene's cluster
+     merged bounce-1 wavefront (1,048,576 lanes): first the dense kernel
+     against the plain sweep `dense_trace._sweep` on the same CUDA tensors,
+     t and prim bit for bit (`dense_sweep.kernel_vs_plain`: the kernel's
+     ms, the plain sweep's, the bound and the share), then
+     `dense_trace.trace_shaded` and, called directly, `trace_clustered` on
+     the same scene's cluster
      tables — misses equal, t within rtol 1e-5, every differing prim id a
      t-tie, and those not between coincident copies of one triangle
      (sphere.obj holds each triangle three times; the dense sweep reports
      the lowest index, the cluster tracer the first in its sweep order) at
-     most 0.1% of hits, phase 3's bar; both times (CUDA events after a warm-up), the
-     cluster kernel's alone, and the sweep's arithmetic bound, lanes x
-     prims x 60 operations at 67 TFLOP/s;
+     most 0.1% of hits, phase 3's bar; both times (CUDA events after a
+     warm-up) and each tracer's kernel's alone; the bound is the sweep's
+     arithmetic, lanes x prims x 60 operations at 67 TFLOP/s;
  14. cornell_box at 512^2, `render_film_frames` with its schedule and NEE,
      CORNELL_FRAMES frames; 15. sky_dome and 16. spectral_box at 512^2,
      `render_film_frames_spec` with their schedules, SPEC_FRAMES frames
@@ -79,7 +88,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      compaction and shadow cap 0.09: a warm-up frame, then PRISM_FRAMES
      timed frames; zero overflow (walk compaction plus capped shadow
      lanes), a finite HDR with mean > 0 (a spectral HDR may be negative in
-     a channel), no launch of the cluster kernel, ms/frame and the peak
+     a channel), no launch of the cluster kernel, launches of the dense
+     kernel, ms/frame and the peak
      device memory; one frame rendered twice from one key, bit-equal; and
      the same frame without the cap: its overflow, its time and peak
      memory, and whether it equals the capped frame bit for bit (else the
@@ -88,7 +98,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      the tracer: the fused depth-1 walk (524,288 lanes) and the shadow
      batch packed to its capacity (471,936 lanes, with per-lane tmax) —
      the kernel vs cluster_trace_plain in sorted mode with phase 3's bar,
-     then the dense sweep vs `trace_clustered` with phase 13's bar; the
+     then the dense kernel vs the plain sweep and the dense tracer vs
+     `trace_clustered` with phase 13's bars; the
      dense sweep ignores tmax and the cluster tracer honours it, so the
      shadow batch is compared on the dense hits within the bound, which is
      what its caller reads (a hit within rtol 1e-5 of its bound may fall
@@ -151,18 +162,30 @@ Phases, each printing its own lines; any failure exits non-zero:
      morton order, shared origin) with phase 3's bar; then the merged
      section on 1 rank over NCCL.  Per section the ranks' ms/frame, the
      mirror's, the ranks' start-up seconds and one all_reduce of the
-     image's size per rank (recorded, not gated).
+     image's size per rank (recorded, not gated).  The sections on dense
+     scenes (cornell_box, sky_dome, prism) must launch the dense kernel
+     on each rank and never the cluster kernel;
+ 25. dense kernel: cornell_box's (36 prims, one partial tile) and
+     sky_dome's 512^2 camera wavefronts, recorded in phases 14 and 15,
+     through phase 13's comparison; then the six wavefronts of phases 13,
+     19 and 25, each with its path's dense-kernel launches per frame at
+     its width, the kernel's ms, the plain sweep's, the bound, the share
+     and the cluster tracer's ms; any differing bit fails.
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
 PLAIN_TILES tiles to bound its memory.  The next-to-last line is a JSON
-object describing the kernel (launches summed over the counted runs of
+object describing the cluster kernel (launches summed over the counted runs of
 the three paths that reach it and over the ranks of phase 24, max_abs_err
 the worst over every compared wavefront, ms,
 plain_ms and bound_ms of the bench camera wavefront, and each compared
 wavefront's figures with its width's launches per frame in its path's
-counted run, and phase 22's agreement with the oracle per wavefront);
-the last line is {"ok": true, "device": {...}}.
+counted run, and phase 22's agreement with the oracle per wavefront)
+and the dense kernel (launches summed over the counted runs of phases
+12, 14-16 and 18 and over the ranks of phase 24, max_abs_err over phase
+25's six wavefronts, ms, plain_ms and bound_ms of single_model's camera
+wavefront, and the six rows); the last line is {"ok": true, "device":
+{...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -190,6 +213,7 @@ SHARD_TIMEOUT = 300.0  # s: the ranks' join, rendezvous and collective limit
 SHARD_PIXEL_FRAC = 1e-3  # Veach 2-rank vs sliced: pixels allowed beyond rtol 1e-5
 DENSE_REPS = 3   # timed traces per tracer in phase 13
 PLAIN_TILES = 1024  # tiles per block of the plain version
+DENSE_SECTIONS = ("pt", "pt_spec", "bdpt_spec")  # phase 24's sections on dense scenes
 T_RTOL = 1e-5
 PRIM_TIE_FRAC = 1e-3
 ORACLE_TIE_FRAC = 2e-3  # prim mismatches against the BVH oracle, share of hits
@@ -227,16 +251,23 @@ def phase_device():
 
 
 def phase_build():
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    """Both kernels built at once, one nvcc per source."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
+
+    kernels = (("cluster_trace.cu", KERNEL), ("dense_trace.cu", DENSE_KERNEL))
     t0 = time.perf_counter()
-    KERNEL.library()
-    info = KERNEL.build_info
-    log(f"[2 build] {time.perf_counter() - t0:.2f} s (nvcc {info.seconds:.2f} s, "
-        f"built={info.built}) -> {info.path}")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2 build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k[1].library(), kernels))
+    log(f"[2 build] {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s")
+    for source, k in kernels:
+        info = k.build_info
+        log(f"[2 build] {source}: nvcc {info.seconds:.2f} s, built={info.built} -> {info.path}")
+        for line in info.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[2 build] {source} ptxas: {line.strip()}")
 
 
 def _plain_blocks(inputs, tiles, stats):
@@ -330,11 +361,11 @@ def phase_kernel(scene, spec, cam, cfg):
     return (*_compare_all(waves, "[3 kernel]"), waves[:2])
 
 
-def _log_widths(tag, per_width, frames):
+def _log_widths(tag, per_width, frames, kernel="kernel"):
     """Logs and returns the counted run's kernel launches per frame by
     live width (the wrapper's `launches_by_width`)."""
     per_frame = {w: c / frames for w, c in per_width.items()}
-    log(f"{tag} kernel launches per frame by live width: " + ", ".join(
+    log(f"{tag} {kernel} launches per frame by live width: " + ", ".join(
         f"{w}: {c:g}" for w, c in sorted(per_frame.items(), reverse=True)))
     return per_frame
 
@@ -568,13 +599,16 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
     """`frames` timed frames of one dense-tracer scene into `fl`, rendered
     as the CLI renders it (`sdata`: the spectral tables of a pt_spec
     scene), with the checks of the path phases.  The scene must not reach
-    the cluster kernel."""
+    the cluster kernel and must launch the dense one.  Returns (dense
+    kernel launches, their launches per frame by width)."""
     import torch
 
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.tools.dense_sweep import render_frames
 
     KERNEL.reset_counts()
+    DENSE_KERNEL.reset_counts()
     t0 = time.perf_counter()
     fl, kills = render_frames(scene, cfg, spec, cam, fl, frames, sdata)
     sync()
@@ -588,7 +622,10 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
     log(f"{tag} {name} {SIZE}^2, {cfg.integrator}, {scene.n_prims} prims, schedule "
         f"{cfg.compaction}, group {cfg.group}: {frames} frames in {seconds:.2f} s = "
         f"{seconds / frames * 1e3:.3f} ms/frame; overflow kills {kills}; cluster kernel "
-        f"launches {KERNEL.launches}; frames {fl.frame}; hdr mean {float(hdr.mean()):.5f}")
+        f"launches {KERNEL.launches}; dense kernel launches {DENSE_KERNEL.launches} "
+        f"({DENSE_KERNEL.launches / frames:g} per frame); frames {fl.frame}; hdr mean "
+        f"{float(hdr.mean()):.5f}")
+    per_frame = _log_widths(tag, DENSE_KERNEL.launches_by_width, frames, "dense kernel")
     if kills != 0:
         fail(f"{kills} compaction overflow kills on the {name} path")
     if not ok_img:
@@ -596,15 +633,41 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
              + ("" if signed else ", or has a negative value"))
     if KERNEL.launches != 0:
         fail(f"{name} ({scene.n_prims} prims) reached the cluster kernel")
+    if DENSE_KERNEL.launches == 0:
+        fail(f"{name} ({scene.n_prims} prims) never launched the dense kernel")
+    return DENSE_KERNEL.launches, per_frame
+
+
+def _dense_rows(tag, scene, waves, reps, per_frame, tmax=()):
+    """`dense_sweep.compare` on each (name, o, d, shared origin) wavefront
+    of `scene`: a line of the dense kernel against the plain sweep per
+    wavefront (any differing bit of t or prim fails the run), its path's
+    dense-kernel launches per frame at the wavefront's width, and the
+    comparison's row."""
+    from ti_raytrace_tpu_torch.tools.dense_sweep import compare
+
+    rows = []
+    for i, (name, o, d, origin) in enumerate(waves):
+        r = compare(scene, o, d, origin, reps, tmax=tmax[i] if tmax else None)
+        r.update(wavefront=name, launches_per_frame=per_frame.get(r["lanes"], 0.0))
+        log(f"{tag} dense kernel vs plain sweep, {name}: {r['lanes']} lanes x {r['prims']} "
+            f"prims; bit-equal t and prim={r['bit_equal']}; kernel {r['kernel_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by operations, share "
+            f"{r['share']:.4f}; {r['launches_per_frame']:g} launches per frame")
+        if not r["bit_equal"]:
+            fail(f"the dense kernel differs from the plain sweep on the {name} wavefront")
+        rows.append(r)
+    return rows
 
 
 def phase_single_model(sync):
-    """Phase 12, then phase 13 on the wavefronts its warm-up group recorded."""
+    """Phase 12, then phase 13 on the wavefronts its warm-up group recorded.
+    Returns (dense kernel launches, phase 13's rows)."""
     import torch
 
     from ti_raytrace_tpu_torch import film as film_mod
     from ti_raytrace_tpu_torch.examples.scenes import make_camera, single_model
-    from ti_raytrace_tpu_torch.tools.dense_sweep import compare, group_wavefronts
+    from ti_raytrace_tpu_torch.tools.dense_sweep import group_wavefronts
 
     scene, cfg = single_model("cuda")
     spec, cam = make_camera(scene, cfg, SIZE, SIZE)
@@ -614,43 +677,55 @@ def phase_single_model(sync):
     sync()
     log(f"[12 single_model] warm-up group: {cfg.group} frames in "
         f"{time.perf_counter() - t0:.2f} s, overflow kills {warm_kills}")
-    _dense_path("[12 single_model]", "single_model", scene, cfg, spec, cam, fl,
-                DENSE_GROUPS * cfg.group, sync, warm_kills)
+    launches, per_frame = _dense_path("[12 single_model]", "single_model", scene, cfg, spec,
+                                      cam, fl, DENSE_GROUPS * cfg.group, sync, warm_kills)
 
     if [w[1].shape[1] for w in waves] != [SIZE * SIZE, cfg.group * SIZE * SIZE // 4]:
         fail(f"one single_model group traced the widths {[w[1].shape[1] for w in waves]}")
-    for name, o, d, origin in waves:
-        r = compare(scene, o, d, origin, DENSE_REPS)
+    rows = _dense_rows("[13 dense vs cluster]", scene, waves, DENSE_REPS, per_frame)
+    for (name, _, _, _), r in zip(waves, rows):
         log(f"[13 dense vs cluster] {name}: {r['lanes']} lanes x {r['prims']} prims, "
             f"{r['hits']} hits; misses equal={r['misses_equal']}; max|dt| "
             f"{r['max_abs_dt']:.3e} (rtol {T_RTOL} ok={r['t_ok']}); prim mismatch "
             f"{r['prim_mismatch_frac']:.2e} of hits, {r['apart_mismatch_frac']:.2e} not "
             f"between coincident copies (ties ok={r['ties_ok']})")
-        log(f"[13 dense vs cluster] {name}: dense sweep {r['dense_ms']:.3f} ms, cluster "
-            f"tracer {r['cluster_ms']:.3f} ms (its kernel alone "
-            f"{r['cluster_kernel_ms']:.4f} ms); sweep bound {r['bound_ms']:.4f} ms by "
-            f"operations; share {r['share']:.4f}")
+        log(f"[13 dense vs cluster] {name}: dense tracer {r['dense_ms']:.3f} ms (its kernel "
+            f"alone {r['kernel_ms']:.4f} ms), cluster tracer {r['cluster_ms']:.3f} ms (its "
+            f"kernel alone {r['cluster_kernel_ms']:.4f} ms)")
         if not (r["hits"] > 0 and r["misses_equal"] and r["t_ok"] and r["ties_ok"]
                 and r["apart_mismatch_frac"] <= PRIM_TIE_FRAC):
             fail(f"the dense sweep disagrees with the cluster tracer on the {name} wavefront")
     del waves
     torch.cuda.empty_cache()
+    for r in rows:
+        r["path"] = "single_model"
+    return launches, rows
 
 
 def phase_dense_path(tag, name, frames, sync):
-    """Phases 14-16: a warm-up frame, then `frames` timed frames."""
+    """Phases 14-16: a warm-up frame, recorded at the dense tracer, then
+    `frames` timed frames.  Returns (dense kernel launches, their launches
+    per frame by width, (scene, o, d) of the warm-up frame's camera
+    wavefront)."""
     from ti_raytrace_tpu_torch import film as film_mod
     from ti_raytrace_tpu_torch.examples.run import spectral_data
     from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, make_camera
-    from ti_raytrace_tpu_torch.tools.dense_sweep import render_frames
+    from ti_raytrace_tpu_torch.tools.dense_sweep import recording, render_frames
 
     scene, cfg = EXAMPLES[name]("cuda")
     spec, cam = make_camera(scene, cfg, SIZE, SIZE)
     fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
     sdata = spectral_data(cfg, cfg.integrator, scene.device)
-    fl, warm_kills = render_frames(scene, cfg, spec, cam, fl, 1, sdata)
+    with recording() as calls:
+        fl, warm_kills = render_frames(scene, cfg, spec, cam, fl, 1, sdata)
     sync()
-    _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, sdata)
+    o, d = calls[0]
+    if o.shape[1] != SIZE * SIZE:
+        fail(f"the first dense trace of a {name} frame has {o.shape[1]} lanes")
+    del calls
+    launches, per_frame = _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync,
+                                      warm_kills, sdata)
+    return launches, per_frame, (scene, o, d)
 
 
 def phase_dense_parity(name, phase=17):
@@ -672,7 +747,8 @@ def phase_dense_parity(name, phase=17):
 
 def phase_prism(sync):
     """Phase 18, then phase 19 on the wavefronts of one more frame.
-    Returns (max |dt| of the kernel against its plain version, its rows)."""
+    Returns (max |dt| of the kernel against its plain version, its rows,
+    dense kernel launches, the dense kernel's rows)."""
     import dataclasses
 
     import torch
@@ -682,7 +758,7 @@ def phase_prism(sync):
     from ti_raytrace_tpu_torch.examples.run import spectral_data
     from ti_raytrace_tpu_torch.examples.scenes import make_camera, prism_rainbow
     from ti_raytrace_tpu_torch.ops import cluster_trace as ct
-    from ti_raytrace_tpu_torch.tools.dense_sweep import compare, prism_wavefronts, render_frames
+    from ti_raytrace_tpu_torch.tools.dense_sweep import prism_wavefronts, render_frames
 
     tag = "[18 prism_rainbow]"
     scene, cfg = prism_rainbow("cuda")
@@ -695,8 +771,8 @@ def phase_prism(sync):
     log(f"{tag} warm-up frame {time.perf_counter() - t0:.2f} s, overflow {warm}; walk "
         f"compaction {cfg.bdpt_walk_compaction}, shadow cap {cfg.bdpt_shadow_cap}")
     torch.cuda.reset_peak_memory_stats()
-    _dense_path(tag, "prism_rainbow", scene, cfg, spec, cam, fl, PRISM_FRAMES, sync, warm,
-                render)
+    launches, per_frame = _dense_path(tag, "prism_rainbow", scene, cfg, spec, cam, fl,
+                                      PRISM_FRAMES, sync, warm, render)
     peak = torch.cuda.max_memory_allocated()
 
     def timed(fn):
@@ -743,23 +819,25 @@ def phase_prism(sync):
     kernel_waves = [(f"{name} (sorted)", ct.kernel_inputs(scene, o, d, True, tmax=tmax)[0])
                     for name, o, d, tmax in waves]
     max_err, rows = _compare_all(kernel_waves, tag)
-    for name, o, d, tmax in waves:
-        r = compare(scene, o, d, None, DENSE_REPS, tmax=tmax)
+    dense_rows = _dense_rows(tag, scene, [(name, o, d, None) for name, o, d, _ in waves],
+                             DENSE_REPS, per_frame, tmax=[w[3] for w in waves])
+    for (name, o, d, tmax), r in zip(waves, dense_rows):
+        r["path"] = "prism_rainbow"
         log(f"{tag} dense vs cluster, {name}: {r['lanes']} lanes x {r['prims']} prims, "
             f"{r['hits']} hits{'' if tmax is None else ' within the bound'}; misses equal="
             f"{r['misses_equal']}; max|dt| {r['max_abs_dt']:.3e} (rtol {T_RTOL} "
             f"ok={r['t_ok']}); prim mismatch {r['prim_mismatch_frac']:.2e} of hits (ties "
             f"ok={r['ties_ok']}); {r['at_bound']} lanes at their bound")
-        log(f"{tag} dense vs cluster, {name}: dense sweep {r['dense_ms']:.3f} ms, cluster "
-            f"tracer {r['cluster_ms']:.3f} ms (its kernel alone {r['cluster_kernel_ms']:.4f} "
-            f"ms); sweep bound {r['bound_ms']:.4f} ms by operations; share {r['share']:.4f}")
+        log(f"{tag} dense vs cluster, {name}: dense tracer {r['dense_ms']:.3f} ms (its kernel "
+            f"alone {r['kernel_ms']:.4f} ms), cluster tracer {r['cluster_ms']:.3f} ms (its "
+            f"kernel alone {r['cluster_kernel_ms']:.4f} ms)")
         if not (r["hits"] > 0 and r["misses_equal"] and r["t_ok"] and r["ties_ok"]
                 and r["prim_mismatch_frac"] <= PRIM_TIE_FRAC
                 and r["at_bound"] <= PRIM_TIE_FRAC * r["lanes"]):
             fail(f"the dense sweep disagrees with the cluster tracer on prism's {name}")
     del waves, kernel_waves
     torch.cuda.empty_cache()
-    return max_err, rows
+    return max_err, rows, launches, dense_rows
 
 
 def phase_lbvh(sync):
@@ -1036,7 +1114,9 @@ def phase_sharded(sync):
     """Phase 24: the five sharded paths on 2 ranks (gloo) held to their
     per-shard mirror, Veach against the sliced production frame, the
     kernel on a rank's camera slice, and the merged path on 1 rank over
-    NCCL.  Returns (kernel launches of the ranks, the "sharded" rows)."""
+    NCCL.  Returns (kernel launches of the ranks, max |dt| of the kernel on
+    the rank's slice, the "sharded" rows, dense kernel launches of the
+    ranks)."""
     import numpy as np
     import torch
 
@@ -1061,7 +1141,8 @@ def phase_sharded(sync):
             f"{max(r['seconds']) / r['frames'] * 1e3:.3f} ms/frame on the {SHARD_RANKS} ranks "
             f"together, {r['mirror_seconds'] / r['frames'] * 1e3:.3f} ms/frame shard after "
             f"shard in one process; overflow {r['overflow']}; kernel launches per rank "
-            f"{r['launches']}; image mean {float(r['img'].mean()):.5f}")
+            f"{r['launches']}, dense kernel {r['dense_launches']}; image mean "
+            f"{float(r['img'].mean()):.5f}")
         if r["backend"] != "gloo":
             fail(f"{SHARD_RANKS} ranks on one card ran {r['backend']}, not gloo")
     merged = res["merged"]
@@ -1071,6 +1152,11 @@ def phase_sharded(sync):
         fail(f"a rank of the sharded merged path launched no kernel: {merged['launches']}")
     if min(res["bdpt"]["launches"]) == 0:
         fail("a rank of the sharded Veach BDPT launched no kernel")
+    for section in DENSE_SECTIONS:
+        if min(res[section]["dense_launches"]) == 0 or max(res[section]["launches"]) != 0:
+            fail(f"a rank of the sharded {section} section (a dense scene) launched no dense "
+                 f"kernel or the cluster kernel: {res[section]['dense_launches']}, "
+                 f"{res[section]['launches']}")
 
     scene, cfg = example_cached("veach_bdpt", "cuda")
     spec, cam = make_camera(scene, cfg, SIZE, SIZE)
@@ -1121,7 +1207,37 @@ def phase_sharded(sync):
     if r["backend"] != "nccl" or r["overflow"] != 0 or r["launches"][0] == 0:
         fail("the 1-rank NCCL run of the merged path did not pass")
     launches = sum(sum(res[s]["launches"]) for s in dryrun.SECTIONS) + r["launches"][0]
-    return launches, err, [row]
+    dense = sum(sum(res[s]["dense_launches"]) for s in dryrun.SECTIONS)
+    return launches, err, [row], dense
+
+
+def phase_dense_kernel(rows, camera_waves):
+    """Phase 25: the dense kernel against the plain sweep on the six
+    wavefronts of the dense paths.  Phases 13 and 19 held it on
+    single_model's camera and merged bounce-1 wavefronts and on prism's
+    fused walk and packed shadow batch (`rows`); here cornell_box's and
+    sky_dome's 512^2 camera wavefronts, recorded in phases 14 and 15, go
+    through the same comparison, then every row is printed with its path's
+    launches per frame at its width, the kernel's and the plain sweep's
+    times, the bound, the share and the cluster tracer's time on the same
+    rays.  Any differing bit of t or prim fails.  Returns the six rows."""
+    tag = "[25 dense kernel]"
+    rows = list(rows)
+    for path, (scene, o, d), per_frame in camera_waves:
+        origin = o[:, 0].contiguous() if bool((o == o[:, :1]).all()) else None
+        r, = _dense_rows(tag, scene, [("camera", o, d, origin)], DENSE_REPS, per_frame)
+        r["path"] = path
+        rows.append(r)
+    for r in rows:
+        log(f"{tag} {r['path']} {r['wavefront']}: {r['lanes']} lanes x {r['prims']} prims, "
+            f"{r['launches_per_frame']:g} launches per frame; kernel {r['kernel_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, share "
+            f"{r['share']:.4f}; cluster tracer {r['cluster_ms']:.3f} ms (its kernel "
+            f"{r['cluster_kernel_ms']:.4f} ms); bit-equal={r['bit_equal']}")
+    if len(rows) != 6 or not all(r["bit_equal"] for r in rows):
+        fail("the dense kernel was not held bit for bit against the plain sweep on the six "
+             "wavefronts")
+    return rows
 
 
 def main():
@@ -1185,13 +1301,20 @@ def main():
     del scene, vscene  # phase 22 holds what it needs
     torch.cuda.empty_cache()
 
-    phase_single_model(sync)
-    phase_dense_path("[14 cornell_box]", "cornell_box", CORNELL_FRAMES, sync)
-    phase_dense_path("[15 sky_dome]", "sky_dome", SPEC_FRAMES, sync)
-    phase_dense_path("[16 spectral_box]", "spectral_box", SPEC_FRAMES, sync)
+    dense_launches, dense_rows = phase_single_model(sync)
+    camera_waves = []  # phase 25's: cornell_box's and sky_dome's camera wavefronts
+    for tag, name, frames in (("[14 cornell_box]", "cornell_box", CORNELL_FRAMES),
+                              ("[15 sky_dome]", "sky_dome", SPEC_FRAMES),
+                              ("[16 spectral_box]", "spectral_box", SPEC_FRAMES)):
+        n, per_frame, wave = phase_dense_path(tag, name, frames, sync)
+        dense_launches += n
+        if name != "spectral_box":
+            camera_waves.append((name, wave, per_frame))
     for name in ("single_model", "cornell_box", "sky_dome", "spectral_box"):
         phase_dense_parity(name)
-    err_p, prism_rows = phase_prism(sync)
+    err_p, prism_rows, n, prism_dense_rows = phase_prism(sync)
+    dense_launches += n
+    dense_rows += prism_dense_rows
     max_err = max(max_err, err_p)
     _attach_launches(prism_rows, {})  # the prism path takes the dense tracer: 0 launches
     phase_dense_parity("prism_rainbow", phase=20)
@@ -1199,9 +1322,12 @@ def main():
     oracle_rows = phase_oracle(oracle_waves, sync)
     del oracle_waves
     phase_native(host, root)
-    n, err_s, shard_rows = phase_sharded(sync)
+    n, err_s, shard_rows, n_dense = phase_sharded(sync)
     launches += n
+    dense_launches += n_dense
     max_err = max(max_err, err_s)
+    dense_rows = phase_dense_kernel(dense_rows, camera_waves)
+    del camera_waves
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
@@ -1220,6 +1346,19 @@ def main():
         "library_ms": None,  # no PyTorch call computes a closest hit over clusters
         "wavefronts": [dict(path=p, **r) for p, rs in paths for r in rs],
         "oracle": oracle_rows,
+    }, {
+        "name": "dense_sweep",
+        "route": "cuda",
+        "source": "ti_raytrace_tpu_torch/csrc/dense_trace.cu",
+        "replaces": "ti_raytrace_tpu/ops/dense_trace.py:147",
+        "launches": dense_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in dense_rows),
+        "ms": dense_rows[0]["kernel_ms"],
+        "plain_ms": dense_rows[0]["plain_ms"],
+        "bound_ms": dense_rows[0]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,  # no PyTorch call computes a closest hit over triangles
+        "wavefronts": dense_rows,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -17,8 +17,9 @@ under the hero-wavelength spectral path tracer (`integrators/pt_spec`);
 and prism_rainbow under spectral BDPT (`integrators/bdpt_spec`), with the
 debug AOVs (`integrators/debug`), the golden gates (`tools/golden.py`),
 the BDPT strategy decomposition (`tools/bdpt_decompose.py`) and the speed
-benchmark (`tools/bench.py`, run by `bench_torch.py`).  The cluster traversal is a hand-written CUDA
-kernel (`csrc/cluster_trace.cu`, wrapped by `ops/cluster_trace.py`); the
-dense sweep is plain torch ops.  What is not ported (the CLI's live
-preview) raises NotImplementedError naming its ROADMAP item.
+benchmark (`tools/bench.py`, run by `bench_torch.py`).  Both tracers
+run on the card as hand-written CUDA kernels, each with a plain PyTorch
+twin that CPU tensors take: the cluster traversal
+(`csrc/cluster_trace.cu`, wrapped by `ops/cluster_trace.py`) and the
+dense sweep (`csrc/dense_trace.cu`, wrapped by `ops/dense_trace.py`).
 """

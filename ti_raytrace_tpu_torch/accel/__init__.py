@@ -2,9 +2,9 @@
 
 Two tracers share one contract, and the scene's primitive count picks
 one: scenes of at most DENSE_MAX_PRIMS primitives take the dense planar
-sweep (ops/dense_trace.py, plain torch ops), larger ones the cluster
-tracer (ops/cluster_trace.py), whose kernel runs on CUDA tensors and
-whose plain PyTorch version runs on CPU tensors.  `trace` returns
+sweep (ops/dense_trace.py), larger ones the cluster tracer
+(ops/cluster_trace.py); each runs its kernel on CUDA tensors and its
+plain PyTorch version on CPU tensors.  `trace` returns
 (t, prim); `trace_shaded` adds the barycentrics and the packed shading
 attributes.  Planar convention: rays are (3, N).
 """

@@ -1,7 +1,10 @@
 """Dense planar tracer (twin of ti_raytrace_tpu/ops/dense_trace.py): every
-ray against every primitive, in blocks of BLOCK prims.  It is the tracer
-of scenes of at most accel.DENSE_MAX_PRIMS primitives (`accel.trace`
-dispatches on the primitive count).  Plain torch ops, no hand kernel.
+ray against every primitive, in index order.  It is the tracer of scenes
+of at most accel.DENSE_MAX_PRIMS primitives (`accel.trace` dispatches on
+the primitive count).  On a CUDA tensor the sweep is the hand kernel
+csrc/dense_trace.cu (`DENSE_KERNEL`, over the packed rows of
+`dense_table`); on a CPU tensor it is `_sweep`, plain torch ops in blocks
+of BLOCK prims, which the kernel equals bit for bit.
 
 All wavefront tensors are planar: rays are (3, N), attributes
 (PRIM_A, N).  The triangle test keeps the reference's operation order as
@@ -18,12 +21,16 @@ recomputed after the sweep from its gathered triangle (the same
 multiply-adds on the same operands, so the same bits as inside the
 block), and its attribute column is an index gather from `prim_attr`
 instead of a one-hot matmul (exact, and no matmul that TF32 could reach
-on the card); the lanes are swept in chunks of LANE_CHUNK so the (BLOCK,
-lanes) temporaries stay bounded whatever the width (each lane's result
-depends on that lane alone, so the chunk size changes nothing); blocks
-that hold triangles only skip the sphere branch (the reference skips it
-for scenes without shapes; here the skip is per block).
+on the card); the plain sweep takes the lanes in chunks of LANE_CHUNK so
+the (BLOCK, lanes) temporaries stay bounded whatever the width (each
+lane's result depends on that lane alone, so the chunk size changes
+nothing); blocks that hold triangles only skip the sphere branch (the
+reference skips it for scenes without shapes; here the skip is per
+block).
 """
+
+import collections
+import ctypes
 
 import torch
 
@@ -31,6 +38,8 @@ from ti_raytrace_tpu_torch.core import constants as C
 
 BLOCK = 128
 LANE_CHUNK = 65536  # lanes per sweep chunk: a (BLOCK, LANE_CHUNK) f32 temporary is 32 MiB
+TABLE_W = 16  # f32 columns of a dense_table row
+KIND_NONE, KIND_TRI, KIND_SPHERE = 0.0, 1.0, 2.0  # column 9 of a dense_table row
 
 
 def scene_has_shapes(scene) -> bool:
@@ -147,10 +156,106 @@ def _sweep(scene, o, d, lane_chunk: int = LANE_CHUNK):
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
+def dense_table(scene):
+    """The kernel's prim table, (P, TABLE_W) f32 on the scene's device, one
+    row per prim: v0, e1, e2 (columns 0:9), the kind (9: KIND_TRI for a
+    PRIM_TRI prim, KIND_SPHERE for a PRIM_SHAPE prim whose shape is a
+    sphere, else KIND_NONE, a miss), the shape's centre and radius
+    gathered as `_block_t_uv` gathers them (10:14; zeros in a scene
+    without shapes) and two zero columns.  `SceneBuilder` puts the shape
+    prims after the triangles (as `scene_has_shapes` assumes), so each
+    lies in a block where `_sweep` takes the sphere branch."""
+    P, dev = scene.n_prims, scene.device
+    ptype = scene.prim_type
+    kind = torch.where(ptype == C.PRIM_TRI, KIND_TRI, KIND_NONE)
+    centre = torch.zeros((P, 3), dtype=torch.float32, device=dev)
+    rad = torch.zeros((P, 1), dtype=torch.float32, device=dev)
+    if scene_has_shapes(scene):
+        sid = scene.prim_vidx.clamp(0, scene.shape_type.shape[0] - 1).long()
+        centre, rad = scene.shape_pos[sid], scene.shape_param[sid, 0:1]
+        sphere = (ptype == C.PRIM_SHAPE) & (scene.shape_type[sid] == C.SHAPE_SPHERE)
+        kind = torch.where(sphere, KIND_SPHERE, kind)
+    return torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, kind[:, None], centre, rad,
+                      torch.zeros((P, 2), dtype=torch.float32, device=dev)], dim=1)
+
+
+class _DenseSweepKernel:
+    """ctypes binding of csrc/dense_trace.cu.  `launches` counts kernel
+    launches and `launches_by_width` the same launches by lanes; the
+    wrapper adds to both per launch and nowhere else, and `reset_counts`
+    zeroes both."""
+
+    def __init__(self):
+        self.launches = 0
+        self.launches_by_width = collections.Counter()
+        self.build_info = None
+        self._lib = None
+
+    def reset_counts(self):
+        self.launches = 0
+        self.launches_by_width.clear()
+
+    def library(self):
+        if self._lib is None:
+            from ti_raytrace_tpu_torch.ops import cuda_build
+
+            lib, self.build_info = cuda_build.load("dense_trace.cu")
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.dense_sweep_launch.argtypes = [p, p, i, p, i, p, p, p]
+            lib.dense_sweep_launch.restype = ctypes.c_int
+            lib.dense_sweep_error_string.argtypes = [ctypes.c_int]
+            lib.dense_sweep_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, o, d, table):
+        """Closest hit of the planar rays o, d (3, N) over the rows of
+        `table` (dense_table): (t (N,) f32, prim (N,) int32), (INF, -1) on
+        a miss.  Every operand a contiguous float32 tensor on one CUDA
+        device; N = 0 returns empty outputs without a launch."""
+        dev = o.device
+        for name, x in (("o", o), ("d", d), ("table", table)):
+            if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+                raise ValueError(f"dense_sweep: {name} must be a contiguous torch.float32 "
+                                 f"tensor on {dev}, got {x.dtype} on {x.device}, "
+                                 f"contiguous={x.is_contiguous()}")
+        n = o.shape[1] if o.dim() == 2 else -1
+        if (o.dim() != 2 or o.shape[0] != 3 or d.shape != o.shape or table.dim() != 2
+                or table.shape[1] != TABLE_W or table.data_ptr() % 16):
+            raise ValueError(f"dense_sweep: bad shapes o {tuple(o.shape)} d {tuple(d.shape)} "
+                             f"table {tuple(table.shape)} (want (3, N), (3, N), "
+                             f"(P, {TABLE_W}) 16-byte aligned)")
+        if dev.type != "cuda":
+            raise ValueError(f"dense_sweep: the kernel needs CUDA tensors, got {dev}")
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        prim = torch.empty(n, dtype=torch.int32, device=dev)
+        if n == 0:
+            return t, prim
+        lib = self.library()
+        with torch.cuda.device(dev):
+            err = lib.dense_sweep_launch(o.data_ptr(), d.data_ptr(), n, table.data_ptr(),
+                                         table.shape[0], t.data_ptr(), prim.data_ptr(),
+                                         torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError("dense_sweep kernel launch failed: "
+                               + lib.dense_sweep_error_string(err).decode())
+        self.launches += 1
+        self.launches_by_width[n] += 1
+        return t, prim
+
+
+DENSE_KERNEL = _DenseSweepKernel()
+
+
 def trace_planar(scene, o, d):
-    """Closest hit, planar rays (3, N) -> (t, prim); a miss is (INF, -1)."""
+    """Closest hit, planar rays (3, N) -> (t, prim); a miss is (INF, -1).
+    The CUDA kernel for CUDA tensors, `_sweep` for CPU tensors."""
     with torch.profiler.record_function("dense_trace._sweep"):
-        return _sweep(scene, o, d)
+        if o.device.type == "cuda":
+            return DENSE_KERNEL(o.contiguous(), d.contiguous(), dense_table(scene))
+        if o.device.type == "cpu":
+            return _sweep(scene, o, d)
+        raise NotImplementedError(f"dense_trace: no implementation for {o.device}")
 
 
 def capacity_lanes(N: int, cap_frac: float) -> int:

@@ -8,11 +8,11 @@ Starts `n` ranks once with torch.multiprocessing (spawn, as CUDA
 requires), joined through a FileStore in a temporary directory; each rank
 times one all_reduce of the image's size, renders every section on its
 lane shard (on CUDA after an untimed warm-up run of it at 64^2) and
-writes, per section, the image, the overflow, its kernel launches and its
-seconds to an .npz file there.  The parent then renders the same sections
-shard after shard in one process (the per-shard mirror) and holds each
-rank's image to it bit for bit.  Sections, each on the scene whose path
-it exercises:
+writes, per section, the image, the overflow, its launches of the cluster
+and of the dense kernel and its seconds to an .npz file there.  The
+parent then renders the same sections shard after shard in one process
+(the per-shard mirror) and holds each rank's image to it bit for bit.
+Sections, each on the scene whose path it exercises:
 
   pt         render_frame_sharded with pt_rgb.trace_paths (cornell_box, its
              schedule and NEE), 1 frame;
@@ -197,6 +197,7 @@ def _all_reduce_ms(mesh, n: int, reps: int = COLLECTIVE_REPS) -> float:
 def _rank_main(rank, n, out_dir, device, size, frames, sections, timeout, t_spawn):
     """One rank: join the group, render every section, write its files."""
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.parallel import shard
 
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * n)))
@@ -215,6 +216,7 @@ def _rank_main(rank, n, out_dir, device, size, frames, sections, timeout, t_spaw
                 run_section(section, mesh, WARMUP_SIZE, frames)
             shard._all_reduce(torch.zeros(1, device=mesh.device), mesh)  # start together
             KERNEL.reset_counts()
+            DENSE_KERNEL.reset_counts()
             t0 = time.perf_counter()
             img, ov = run_section(section, mesh, size, frames)
             _sync(mesh.device)
@@ -222,6 +224,7 @@ def _rank_main(rank, n, out_dir, device, size, frames, sections, timeout, t_spaw
             widths = sorted(KERNEL.launches_by_width)
             np.savez(os.path.join(out_dir, f"{section}_{rank}.npz"),
                      img=img.cpu().numpy(), overflow=ov, launches=KERNEL.launches,
+                     dense_launches=DENSE_KERNEL.launches,
                      widths=np.asarray(widths, np.int64),
                      width_launches=np.asarray([KERNEL.launches_by_width[w] for w in widths],
                                                np.int64),
@@ -265,8 +268,9 @@ def _spawn(n, out_dir, device, size, frames, sections, timeout):
 def dryrun_multichip(n: int, device="cuda", size: int = 512, frames: int = 16,
                      sections=SECTIONS, timeout: float = 600.0):
     """Run `sections` on n spawned ranks and hold each to its per-shard
-    mirror.  Returns {section: dict(img (W, H, 3) numpy, overflow, kernel
-    launches per rank and per rank by live width, seconds per rank,
+    mirror.  Returns {section: dict(img (W, H, 3) numpy, overflow, cluster
+    kernel launches per rank and per rank by live width, dense kernel
+    launches per rank, seconds per rank,
     frames, mirror_seconds, backend)} plus "start_s": the ranks' seconds
     from spawn to a joined group, and "all_reduce_ms": each rank's ms for
     one all_reduce of a (3, size^2) float32 buffer, the collective that
@@ -306,6 +310,7 @@ def dryrun_multichip(n: int, device="cuda", size: int = 512, frames: int = 16,
                                    f"{int(f['overflow'])} != the mirror's {want_ov}")
         out[section] = dict(
             img=img, overflow=want_ov, launches=[int(f["launches"]) for f in rs],
+            dense_launches=[int(f["dense_launches"]) for f in rs],
             launches_by_width=[dict(zip(f["widths"].tolist(), f["width_launches"].tolist()))
                                for f in rs],
             seconds=[float(f["seconds"]) for f in rs],
@@ -331,7 +336,7 @@ def main(argv=None):
     for section, r in res.items():
         print(f"dryrun_multichip({args.ranks}): {section} ok ({r['backend']}), frame mean "
               f"{float(r['img'].mean()):.5f}, overflow {r['overflow']}, kernel launches "
-              f"{r['launches']}, {max(r['seconds']) / r['frames'] * 1e3:.3f} ms/frame "
+              f"{r['launches']} (dense {r['dense_launches']}), {max(r['seconds']) / r['frames'] * 1e3:.3f} ms/frame "
               f"on the ranks, {r['mirror_seconds'] / r['frames'] * 1e3:.3f} ms/frame shard "
               f"after shard in one process")
 

@@ -6,12 +6,15 @@
 Part 1, dense against cluster.  Records, at `ops.dense_trace.trace_shaded`,
 the camera wavefront (512^2 lanes) and the merged bounce-1 wavefront
 (16 x 65,536 lanes) of one single_model group, then traces each with the
-dense sweep and, called directly, with the cluster tracer on the same
-scene's cluster tables; reports how far the two agree (misses, t, prim)
-and, from CUDA events after a warm-up, the dense sweep's time, the
-cluster tracer's (its sort and gathers included) and the cluster kernel's
-alone, beside the sweep's arithmetic bound, lanes x prims x 60 operations
-at the FP32 peak.  sphere.obj holds each of its 760 triangles three
+dense tracer (its kernel, csrc/dense_trace.cu) and, called directly, with
+the cluster tracer on the same scene's cluster tables; reports how far the
+two agree (misses, t, prim), whether the dense kernel equals the plain
+sweep `_sweep` bit for bit, and, from CUDA events after a warm-up, the
+dense tracer's time (its table and gathers included), the dense kernel's
+alone, the plain sweep's, the cluster tracer's (its sort and gathers
+included) and the cluster kernel's alone, beside the sweep's arithmetic
+bound, lanes x prims x 60 operations at the FP32 peak, and the dense
+kernel's share of it.  sphere.obj holds each of its 760 triangles three
 times, so most hits are exact t-ties between coincident copies, where the
 dense sweep reports the lowest index and the cluster tracer the first in
 its sweep order: differing prims are counted in all and apart from such
@@ -29,12 +32,13 @@ and prism_rainbow at 512^2, rendered as the CLI renders them
 (`render_frames`): host ms/frame over `--frames` frames (single_model:
 whole groups of 16) after a warm-up, the overflow kills, the peak device
 memory, and from torch.profiler over one more call (one frame of BDPT)
-the device ms/frame and the share of it spent inside `dense_trace._sweep`
-(the kernels launched inside that record_function range).  prism_rainbow
-is also rendered uncapped (the shadow cap's effect) and, with
-`cluster_tracer()`, a switch local to this tool, through the cluster
-tracer.  chip_smoke.py uses the recorders, the comparison and
-`render_frames`.  Needs a CUDA card.
+the device ms/frame and the share of it spent in the sweeps (the dense
+kernel's launches and the kernels of the torch calls inside the
+`dense_trace._sweep` record_function range), with the dense kernel's
+launches per frame.  prism_rainbow is also rendered uncapped (the shadow
+cap's effect) and, with `cluster_tracer()`, a switch local to this tool,
+through the cluster tracer.  chip_smoke.py uses the recorders, the
+comparison and `render_frames`.  Needs a CUDA card.
 """
 
 import argparse
@@ -52,6 +56,7 @@ from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_FP32, time_ms
 SIZE = 512
 SCENES = ("cornell_box", "single_model", "sky_dome", "spectral_box", "prism_rainbow")
 SWEEP_RANGE = "dense_trace._sweep"  # the record_function range of ops/dense_trace.py
+DENSE_KERNEL_NAME = "dense_sweep_kernel"  # the kernel of csrc/dense_trace.cu
 MT_OPS = 60  # FP32 operations of one ray-triangle test (tools/kernel_wavefronts.py)
 T_RTOL = 1e-5
 
@@ -159,15 +164,36 @@ def prism_wavefronts(scene, cfg, spec, cam, frame: int = 1, seed: int = 2):
             int(active.index_select(0, sel).sum()))
 
 
+def kernel_vs_plain(scene, o, d, reps: int) -> dict:
+    """The dense kernel against the plain sweep `_sweep` on one wavefront,
+    both on the card: bit-equality of t and of prim (`bit_equal`), the
+    largest |dt| on the lanes either calls a hit (`max_abs_err`), the
+    kernel's time over `reps` launches after a warm-up (`kernel_ms`, the
+    table made once outside), the plain sweep's over one call after a
+    warm-up (`plain_ms`), the bound and the kernel's share of it."""
+    table = dt.dense_table(scene)
+    o, d = o.contiguous(), d.contiguous()  # as trace_planar hands them to the kernel
+    ms_kernel, (t_k, p_k) = time_ms(lambda: dt.DENSE_KERNEL(o, d, table), reps)
+    ms_plain, (t_p, p_p) = time_ms(lambda: dt._sweep(scene, o, d), 1)
+    hit = (p_k >= 0) | (p_p >= 0)
+    bound = sweep_bound_ms(o.shape[1], scene.n_prims)
+    return dict(bit_equal=torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
+                max_abs_err=float(torch.where(hit, (t_k - t_p).abs(), 0.0).max())
+                if o.shape[1] else 0.0,
+                kernel_ms=ms_kernel, plain_ms=ms_plain, bound_ms=bound,
+                share=bound / ms_kernel)
+
+
 def compare(scene, o, d, shared_origin, reps: int, tmax=None) -> dict:
-    """The dense sweep and the cluster tracer on one wavefront of a scene
-    that has both tables: agreement and times.  The camera wavefront goes
-    to the cluster tracer as the path tracer would send it (shared origin,
-    unsorted), any other through its sorted mode.  tmax: the wavefront's
-    per-lane bound, which only the cluster tracer takes; the hits compared
-    are then the dense sweep's within the bound (those its caller reads),
-    and a lane whose hit lies within T_RTOL of its bound may fall on
-    either side (`at_bound`, counted)."""
+    """The dense tracer and the cluster tracer on one wavefront of a scene
+    that has both tables: agreement and times, with `kernel_vs_plain`'s
+    figures.  The camera wavefront goes to the cluster tracer as the path
+    tracer would send it (shared origin, unsorted), any other through its
+    sorted mode.  tmax: the wavefront's per-lane bound, which only the
+    cluster tracer takes; the hits compared are then the dense sweep's
+    within the bound (those its caller reads), and a lane whose hit lies
+    within T_RTOL of its bound may fall on either side (`at_bound`,
+    counted)."""
     from ti_raytrace_tpu_torch.ops import cluster_trace as ct
 
     if shared_origin is not None:
@@ -194,10 +220,8 @@ def compare(scene, o, d, shared_origin, reps: int, tmax=None) -> dict:
     cent = scene.tri_v0 + (scene.tri_e1 + scene.tri_e2) / 3.0
     c_d, c_c = cent[p_d.clamp(min=0).long()], cent[p_c.clamp(min=0).long()]
     apart = mism & ((c_d - c_c).abs().amax(dim=1) > 1e-5 * (1.0 + c_d.abs().amax(dim=1)))
-    lanes = o.shape[1]
-    bound = sweep_bound_ms(lanes, scene.n_prims)
     return dict(
-        lanes=lanes, prims=scene.n_prims, hits=n_hit,
+        lanes=o.shape[1], prims=scene.n_prims, hits=n_hit,
         misses_equal=bool(((p_c >= 0) == hit).all()),
         max_abs_dt=float(dt_abs.max()),
         t_ok=bool((dt_abs <= T_RTOL * t_d.abs()).all()),
@@ -205,18 +229,19 @@ def compare(scene, o, d, shared_origin, reps: int, tmax=None) -> dict:
         apart_mismatch_frac=int(apart.sum()) / max(n_hit, 1),
         ties_ok=bool(((t_c - t_d).abs()[mism] <= T_RTOL * t_d.abs()[mism]).all()),
         dense_ms=ms_dense, cluster_ms=ms_cluster, cluster_kernel_ms=ms_kernel,
-        bound_ms=bound, share=bound / ms_dense, at_bound=at_bound,
+        at_bound=at_bound, **kernel_vs_plain(scene, o, d, reps),
     )
 
 
 def profile_call(render, device) -> dict:
     """One render() under torch.profiler: the device time of all kernels
-    and of those launched inside `dense_trace._sweep` ranges (ms), and the
-    number of ranges.  A kernel is charged to the torch call that launched
-    it (the profiler's `kernels` of that call's event) and belongs to a
-    sweep when a range is among that call's parents; the range's own
-    device-side mirror (an annotation spanning its kernels) is left out of
-    both sums."""
+    and of those of the sweeps (ms), and the number of
+    `dense_trace._sweep` ranges.  The device time is read from the device
+    events themselves (kernels, copies and fills; not the ranges' own
+    device-side annotations), so the kernels launched through ctypes,
+    which the profiler ties to no torch call, count too.  A sweep's
+    kernels are the dense kernel's launches (by name) and those of the
+    torch calls inside a range (`dense_table`'s, or the plain sweep's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,23 +263,26 @@ def profile_call(render, device) -> dict:
     device_us = sweep_us = 0.0
     sweeps = 0
     for evt in prof.events():
-        if evt.device_type != DeviceType.CPU:
-            continue
-        if evt.name == SWEEP_RANGE:
-            sweeps += 1
-            continue
-        own = sum(k.duration for k in evt.kernels)
-        device_us += own
-        if own and in_sweep(evt):
-            sweep_us += own
+        if evt.device_type == DeviceType.CPU:
+            if evt.name == SWEEP_RANGE:
+                sweeps += 1
+            elif in_sweep(evt):
+                sweep_us += sum(k.duration for k in evt.kernels
+                                if k.name != SWEEP_RANGE and DENSE_KERNEL_NAME not in k.name)
+        elif not getattr(evt, "is_user_annotation", False) and evt.name != SWEEP_RANGE:
+            us = evt.time_range.elapsed_us()
+            device_us += us
+            if DENSE_KERNEL_NAME in evt.name:
+                sweep_us += us
     return dict(profiled_wall_ms=wall_ms, device_ms=device_us / 1e3,
                 sweep_device_ms=sweep_us / 1e3, sweeps=sweeps)
 
 
 def _wavefront_line(name, wname, row):
     print(f"{name} {wname}: {row['lanes']} lanes x {row['prims']} prims; dense "
-          f"{row['dense_ms']:.3f} ms, cluster tracer {row['cluster_ms']:.3f} ms "
-          f"(kernel {row['cluster_kernel_ms']:.4f} ms), bound "
+          f"{row['dense_ms']:.3f} ms (kernel {row['kernel_ms']:.4f} ms, bit-equal to the "
+          f"plain sweep={row['bit_equal']}, plain {row['plain_ms']:.3f} ms), cluster tracer "
+          f"{row['cluster_ms']:.3f} ms (kernel {row['cluster_kernel_ms']:.4f} ms), bound "
           f"{row['bound_ms']:.4f} ms (share {row['share']:.4f}); misses equal="
           f"{row['misses_equal']}, max|dt| {row['max_abs_dt']:.3e} "
           f"ok={row['t_ok']}, prim mismatch {row['prim_mismatch_frac']:.2e} of "
@@ -356,7 +384,9 @@ def main(argv=None):
             print(f"{name}: {n_active} of the packed shadow batch's lanes are active",
                   flush=True)
             del waves
+        dt.DENSE_KERNEL.reset_counts()
         fl, ov, ms_frame, peak = timed_frames(scene, cfg, spec, cam, fl, frames, sdata)
+        launches = dt.DENSE_KERNEL.launches / frames
         # a BDPT frame is ~80,000 torch calls: one frame under the profiler
         prof_frames = 1 if cfg.integrator in BDPT else frames
         prof = profile_call(
@@ -366,6 +396,7 @@ def main(argv=None):
                     device_ms_per_frame=prof["device_ms"] / prof_frames,
                     sweep_device_ms_per_frame=prof["sweep_device_ms"] / prof_frames,
                     sweeps_per_frame=prof["sweeps"] / prof_frames,
+                    kernel_launches_per_frame=launches,
                     sweep_share=prof["sweep_device_ms"] / max(prof["device_ms"], 1e-9),
                     busy_share=prof["device_ms"] / prof["profiled_wall_ms"],
                     hdr_mean=float(fl.hdr.mean()))
@@ -377,7 +408,8 @@ def main(argv=None):
               f"{peak / 2 ** 20:.1f} MiB; device "
               f"{path['device_ms_per_frame']:.3f} ms/frame (busy {path['busy_share']:.3f} of "
               f"the profiled wall), of it {path['sweep_device_ms_per_frame']:.3f} ms in "
-              f"{path['sweeps_per_frame']:g} sweeps (share {path['sweep_share']:.3f})",
+              f"{path['sweeps_per_frame']:g} sweeps (share {path['sweep_share']:.3f}), "
+              f"{launches:g} dense-kernel launches per frame",
               flush=True)
         del scene
         torch.cuda.empty_cache()

@@ -12,16 +12,21 @@ the four path-traced scenes of the dense tracer (single_model,
 cornell_box, sky_dome, spectral_box) and the prism dispersion scene under
 spectral BDPT (`bdpt_spec.make_render_frame`, unsliced, the prism_rainbow
 golden path), and the five sharded paths of `parallel/shard.py` on 2
-ranks sharing the card — and holds both CUDA kernels against their plain
-PyTorch versions: the cluster kernel (csrc/cluster_trace.cu) in every
-mode the paths use, and the dense sweep's kernel (csrc/dense_trace.cu)
-on the dense paths' wavefronts, bit for bit; and the dense tracer
-against the cluster tracer.
+ranks sharing the card — and holds the three CUDA kernels against their
+plain PyTorch versions: the cluster kernel (csrc/cluster_trace.cu) in
+every mode the paths use, the dense sweep's kernel (csrc/dense_trace.cu)
+on the dense paths' wavefronts, bit for bit, and the threefry kernel
+(csrc/rng.cu, every draw of every path) bit for bit on every shape the
+paths draw; and the dense tracer against the cluster tracer.  Every path
+phase also counts the threefry kernel's launches in its counted run (they
+must be > 0) and prints its draws per frame by elements drawn.
 Phases, each printing its own lines; any failure exits non-zero:
 
-  1. device: the card's name and power limit (nvidia-smi), torch/CUDA;
-  2. kernel build: csrc/cluster_trace.cu and csrc/dense_trace.cu, one
-     nvcc for each, started together, timed, with ptxas's registers;
+  1. device: the card's name and power limit (nvidia-smi), its maximum SM
+     clock (the threefry kernel's bound), torch/CUDA;
+  2. kernel build: csrc/cluster_trace.cu, csrc/dense_trace.cu and
+     csrc/rng.cu, one nvcc for each, started together, timed, with
+     ptxas's registers;
   3. kernel vs cluster_trace_plain on the bench's own wavefronts, recorded
      at the tracer during one merged group of the main path (16 frames):
      the 512^2 camera wavefront (shared origin, origin-MT table) and the
@@ -164,13 +169,26 @@ Phases, each printing its own lines; any failure exits non-zero:
      mirror's, the ranks' start-up seconds and one all_reduce of the
      image's size per rank (recorded, not gated).  The sections on dense
      scenes (cornell_box, sky_dome, prism) must launch the dense kernel
-     on each rank and never the cluster kernel;
+     on each rank and never the cluster kernel; every section must launch
+     the threefry kernel on each rank;
  25. dense kernel: cornell_box's (36 prims, one partial tile) and
      sky_dome's 512^2 camera wavefronts, recorded in phases 14 and 15,
      through phase 13's comparison; then the six wavefronts of phases 13,
      19 and 25, each with its path's dense-kernel launches per frame at
      its width, the kernel's ms, the plain sweep's, the bound, the share
-     and the cluster tracer's ms; any differing bit fails.
+     and the cluster tracer's ms; any differing bit fails;
+ 26. rng kernel: the threefry kernel (through `rng.uniform`) against
+     `rng.uniform_plain` on the same CUDA device, bit for bit, on every
+     shape the paths draw at 512^2 (RNG_SHAPES) and at every other
+     element count the path phases' counted runs recorded; on each of
+     RNG_SHAPES, after a line with `torch.rand`'s time for context
+     (Philox, another function), the kernel's ms (CUDA events over
+     RNG_REPS raw launches into one buffer), the wrapper's ms per call
+     as the paths call it, the plain twin's ms, the bound (`_rng_bound`:
+     75 integer operations per element, the 43 shifts and logic ops at
+     64 per clock on the ALU pipe, all 75 at 128 issued per clock, on 132
+     SMs at the maximum SM clock, against 4 bytes written per element at
+     3.35 TB/s) and the share; any differing bit fails.
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
@@ -184,8 +202,11 @@ counted run, and phase 22's agreement with the oracle per wavefront)
 and the dense kernel (launches summed over the counted runs of phases
 12, 14-16 and 18 and over the ranks of phase 24, max_abs_err over phase
 25's six wavefronts, ms, plain_ms and bound_ms of single_model's camera
-wavefront, and the six rows); the last line is {"ok": true, "device":
-{...}}.
+wavefront, and the six rows) and the threefry kernel (launches summed
+over the counted runs of phases 4, 7, 10, 12, 14-16 and 18 and over the
+ranks of phase 24, max_abs_err over phase 26's shapes, ms, plain_ms and
+bound_ms of the (8, 262,144) draw, each shape's row and each path's draws
+per frame); the last line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -218,6 +239,19 @@ T_RTOL = 1e-5
 PRIM_TIE_FRAC = 1e-3
 ORACLE_TIE_FRAC = 2e-3  # prim mismatches against the BVH oracle, share of hits
 BRUTE_LANES = 4096
+# phase 26: every shape the paths draw at 512^2 (camera jitter, a PT bounce
+# at the camera width, the bench's merged bounce 1-2 width, single_model's
+# merged bounce 1, BDPT's walk step, light sample and strategy draws,
+# pt_spec's wavelength draw), each timed
+RNG_SHAPES = ((2, 262144), (8, 262144), (8, 838848), (8, 1048576), (5, 262144),
+              (6, 131072), (3, 2621440), (262144,))
+RNG_REPS = 100  # timed launches per shape
+SM_COUNT = 132  # H100 SXM
+# per SM and clock: 64 lanes of the integer ALU pipe (shifts, logic, adds),
+# 64 of the FMA pipe (IMAD, which takes the adds the compiler moves there),
+# 128 issued in all (4 schedulers x 32 lanes)
+ALU_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128
+RNG_RUNS = []  # (path, rng kernel launches, launches per frame by elements drawn)
 # a hit against a miss, or against another prim at one t, is an edge case
 # where the ray passes within this barycentric distance of the prim's
 # boundary by the oracle's arithmetic: the kernel's shared-origin form
@@ -245,19 +279,29 @@ def phase_device():
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if clock.returncode != 0:
+        fail(f"nvidia-smi: {clock.stderr.strip()}")
+    sm_max, sm_now = (float(x) for x in clock.stdout.strip().splitlines()[0].split(","))
     log(f"[1 device] torch {torch.__version__} CUDA {torch.version.cuda} "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    return card
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; SM clock "
+        f"{sm_now:g} MHz now, {sm_max:g} MHz max")
+    return sm_max
 
 
 def phase_build():
-    """Both kernels built at once, one nvcc per source."""
+    """The three kernels built at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
     from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
 
-    kernels = (("cluster_trace.cu", KERNEL), ("dense_trace.cu", DENSE_KERNEL))
+    kernels = (("cluster_trace.cu", KERNEL), ("dense_trace.cu", DENSE_KERNEL),
+               ("rng.cu", UNIFORM_KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k[1].library(), kernels))
@@ -377,6 +421,30 @@ def _attach_launches(rows, per_frame):
         row["launches_per_frame"] = per_frame.get(row["lanes"], 0.0)
 
 
+def _reset_rng():
+    from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
+
+    UNIFORM_KERNEL.reset_counts()
+
+
+def _rng_counts(tag, path, frames, launches=None, per_width=None):
+    """The threefry kernel's launches in the counted run just made (its
+    wrapper's counts, reset with `_reset_rng` just before; or the given
+    counts of a phase 24 rank): logs its draws per frame by elements drawn,
+    fails if it never launched, records the run in RNG_RUNS."""
+    from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
+
+    if launches is None:
+        launches, per_width = UNIFORM_KERNEL.launches, dict(UNIFORM_KERNEL.launches_by_width)
+    per_frame = {w: c / frames for w, c in per_width.items()}
+    log(f"{tag} rng kernel: {launches} launches ({launches / frames:g} draws per frame); by "
+        f"elements drawn: " + ", ".join(f"{w}: {c:g}" for w, c in sorted(per_frame.items(),
+                                                                           reverse=True)))
+    if launches == 0:
+        fail(f"the {path} path never launched the threefry kernel")
+    RNG_RUNS.append((path, launches, per_frame))
+
+
 def phase_main_path(scene, spec, cam, cfg, sync):
     import torch
 
@@ -398,6 +466,7 @@ def phase_main_path(scene, spec, cam, cfg, sync):
         f"overflow kills {kills}")
 
     KERNEL.reset_counts()  # count only the timed main-path run below
+    _reset_rng()
     times = []
     for _ in range(TIMED_DISPATCHES):
         t0 = time.perf_counter()
@@ -416,6 +485,7 @@ def phase_main_path(scene, spec, cam, cfg, sync):
         f"{launches} ({launches / (TIMED_DISPATCHES * KF):g} per frame); frames {fl.frame}; "
         f"hdr mean {float(hdr.mean()):.5f}")
     per_frame = _log_widths("[4 main]", per_width, TIMED_DISPATCHES * KF)
+    _rng_counts("[4 main]", "bench", TIMED_DISPATCHES * KF)
     if kills != 0:
         fail(f"{kills} compaction overflow kills on the main path")
     if not ok_img:
@@ -481,6 +551,7 @@ def phase_veach_path(scene, spec, cam, cfg, sync):
         fail("the Veach scene has no material that takes NEE")
     fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
     KERNEL.reset_counts()  # count only this path's run
+    _reset_rng()
     t0 = time.perf_counter()
     fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=VEACH_FRAMES,
                                           compaction=cfg.compaction, nee=nee)
@@ -495,6 +566,7 @@ def phase_veach_path(scene, spec, cam, cfg, sync):
         f"ms/frame; overflow kills {kills}; kernel launches {launches} "
         f"({launches / VEACH_FRAMES:g} per frame); hdr mean {float(hdr.mean()):.5f}")
     per_frame = _log_widths("[7 veach]", per_width, VEACH_FRAMES)
+    _rng_counts("[7 veach]", "veach_pt", VEACH_FRAMES)
     if kills != 0:
         fail(f"{kills} overflow kills on the veach_pt path")
     if not ok_img:
@@ -548,6 +620,7 @@ def phase_bdpt_path(scene, spec, cam, cfg, sync):
     sync()
     log(f"[10 bdpt] warm-up frame {time.perf_counter() - t0:.2f} s, overflow {overflow}")
     KERNEL.reset_counts()  # count only the timed run below
+    _reset_rng()
     t0 = time.perf_counter()
     fl, ov = frames(fl, BDPT_FRAMES)
     sync()
@@ -562,6 +635,7 @@ def phase_bdpt_path(scene, spec, cam, cfg, sync):
         f"ms/frame; walk overflow {overflow}; kernel launches {launches} "
         f"({launches / BDPT_FRAMES:g} per frame); hdr mean {float(hdr.mean()):.5f}")
     per_frame = _log_widths("[10 bdpt]", per_width, BDPT_FRAMES)
+    _rng_counts("[10 bdpt]", "veach_bdpt", BDPT_FRAMES)
     key = rng.PRNGKey(7)
     a = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
     b = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
@@ -609,6 +683,7 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
 
     KERNEL.reset_counts()
     DENSE_KERNEL.reset_counts()
+    _reset_rng()
     t0 = time.perf_counter()
     fl, kills = render_frames(scene, cfg, spec, cam, fl, frames, sdata)
     sync()
@@ -626,6 +701,7 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
         f"({DENSE_KERNEL.launches / frames:g} per frame); frames {fl.frame}; hdr mean "
         f"{float(hdr.mean()):.5f}")
     per_frame = _log_widths(tag, DENSE_KERNEL.launches_by_width, frames, "dense kernel")
+    _rng_counts(tag, name, frames)
     if kills != 0:
         fail(f"{kills} compaction overflow kills on the {name} path")
     if not ok_img:
@@ -1141,10 +1217,13 @@ def phase_sharded(sync):
             f"{max(r['seconds']) / r['frames'] * 1e3:.3f} ms/frame on the {SHARD_RANKS} ranks "
             f"together, {r['mirror_seconds'] / r['frames'] * 1e3:.3f} ms/frame shard after "
             f"shard in one process; overflow {r['overflow']}; kernel launches per rank "
-            f"{r['launches']}, dense kernel {r['dense_launches']}; image mean "
-            f"{float(r['img'].mean()):.5f}")
+            f"{r['launches']}, dense kernel {r['dense_launches']}, rng kernel "
+            f"{r['rng_launches']}; image mean {float(r['img'].mean()):.5f}")
         if r["backend"] != "gloo":
             fail(f"{SHARD_RANKS} ranks on one card ran {r['backend']}, not gloo")
+        for rank, (n, widths) in enumerate(zip(r["rng_launches"], r["rng_launches_by_width"])):
+            _rng_counts(f"{tag} {section} rank {rank}:", f"sharded {section}", r["frames"], n,
+                        widths)
     merged = res["merged"]
     if merged["overflow"] != 0:
         fail(f"{merged['overflow']} overflow kills on the sharded merged path")
@@ -1240,6 +1319,78 @@ def phase_dense_kernel(rows, camera_waves):
     return rows
 
 
+def _rng_bound(n, sm_mhz):
+    """The least time of an n-element draw: its UNIFORM_INT_OPS integer
+    operations per element, of which UNIFORM_ALU_OPS only the ALU pipe
+    runs, at max(ALU ops / ALU_PER_CLOCK, all ops / ISSUE_PER_CLOCK) clocks
+    per element and SM lane on SM_COUNT SMs at the maximum SM clock,
+    against 4 bytes written per element at the card's memory rate.
+    Returns (ms, what bounds it, ops, bytes)."""
+    from ti_raytrace_tpu_torch.core.rng import UNIFORM_ALU_OPS, UNIFORM_INT_OPS
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_BYTES
+
+    ops, nbytes = UNIFORM_INT_OPS * n, 4 * n
+    clocks = max(UNIFORM_ALU_OPS / ALU_PER_CLOCK, UNIFORM_INT_OPS / ISSUE_PER_CLOCK)
+    t_ops = n * clocks / (SM_COUNT * sm_mhz * 1e6)
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops, nbytes
+
+
+def phase_rng(sm_mhz):
+    """Phase 26: the threefry kernel against `uniform_plain` bit for bit on
+    RNG_SHAPES and on every other element count that RNG_RUNS recorded;
+    RNG_SHAPES timed.  Returns (the rows of RNG_SHAPES, the largest |kernel
+    - plain| over every compared draw)."""
+    import math
+
+    import torch
+
+    from ti_raytrace_tpu_torch.core import rng
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import time_ms
+
+    tag = "[26 rng kernel]"
+    dev = torch.device("cuda")
+    lib = rng.UNIFORM_KERNEL.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = rng.fold_in(rng.split(rng.PRNGKey(12))[1], 3)
+    k1, k2 = key.tolist()
+    listed = {math.prod(s) for s in RNG_SHAPES}
+    recorded = sorted({w for _, _, per_frame in RNG_RUNS for w in per_frame} - listed)
+    rows, max_err = [], 0.0
+    for shape in RNG_SHAPES + tuple((w,) for w in recorded):
+        n = math.prod(shape)
+        got = rng.uniform(key, shape, dev)
+        want = rng.uniform_plain(key, shape, dev)
+        equal = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        if not equal:
+            fail(f"the threefry kernel differs from uniform_plain on a {shape} draw")
+        if shape not in RNG_SHAPES:
+            continue
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+        ms, status = time_ms(lambda: lib.threefry_uniform_launch(out.data_ptr(), k1, k2, n,
+                                                                 stream), RNG_REPS)
+        if status != 0 or not torch.equal(out.view(shape), got):
+            fail(f"the raw threefry launch on {shape} failed ({status}) or differs")
+        ms_call, _ = time_ms(lambda: rng.uniform(key, shape, dev), RNG_REPS)
+        ms_plain, _ = time_ms(lambda: rng.uniform_plain(key, shape, dev), 3)
+        ms_rand, _ = time_ms(lambda: torch.rand(shape, device=dev), RNG_REPS)
+        bound_ms, bound_by, ops, nbytes = _rng_bound(n, sm_mhz)
+        row = dict(shape=list(shape), elements=n, ms=ms, call_ms=ms_call, plain_ms=ms_plain,
+                   bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes,
+                   share=bound_ms / ms, max_abs_err=err, bit_equal=equal,
+                   torch_rand_ms=ms_rand)
+        log(f"{tag} context: torch.rand{shape} (Philox, another function) {ms_rand:.4f} ms")
+        log(f"{tag} {shape}: bit-equal={equal}; kernel {ms:.4f} ms ({RNG_REPS} raw launches), "
+            f"{ms_call:.4f} ms per rng.uniform call, plain {ms_plain:.3f} ms; bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({ops} ops, {nbytes} B); share {row['share']:.4f}")
+        rows.append(row)
+    log(f"{tag} bit-equal on {len(RNG_SHAPES)} listed shapes and {len(recorded)} other recorded "
+        f"element counts; max |kernel - plain| {max_err:g}")
+    return rows, max_err
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -1256,7 +1407,7 @@ def main():
 
     from ti_raytrace_tpu_torch.examples.scenes import benchmark_100k, make_camera, veach_bdpt
 
-    phase_device()
+    sm_mhz = phase_device()
     phase_build()
     t0 = time.perf_counter()
     scene, cfg = benchmark_100k("cuda")
@@ -1328,6 +1479,8 @@ def main():
     max_err = max(max_err, err_s)
     dense_rows = phase_dense_kernel(dense_rows, camera_waves)
     del camera_waves
+    rng_rows, rng_err = phase_rng(sm_mhz)
+    rng_main = next(r for r in rng_rows if r["shape"] == [8, SIZE * SIZE])
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
@@ -1359,6 +1512,21 @@ def main():
         "bound_by": "operations",
         "library_ms": None,  # no PyTorch call computes a closest hit over triangles
         "wavefronts": dense_rows,
+    }, {
+        "name": "threefry_uniform",
+        "route": "cuda",
+        "source": "ti_raytrace_tpu_torch/csrc/rng.cu",
+        "replaces": "ti_raytrace_tpu/integrators/pt_rgb.py:186",  # jax.random.uniform, XLA
+        "launches": sum(n for _, n, _ in RNG_RUNS),
+        "max_abs_err": rng_err,
+        "ms": rng_main["ms"],
+        "plain_ms": rng_main["plain_ms"],
+        "bound_ms": rng_main["bound_ms"],
+        "bound_by": rng_main["bound_by"],
+        "library_ms": None,  # torch.rand draws Philox: no PyTorch call computes threefry
+        "shapes": rng_rows,
+        "paths": [dict(path=p, launches=n, draws_per_frame=sum(w.values()),
+                       draws_per_frame_by_elements=w) for p, n, w in RNG_RUNS],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

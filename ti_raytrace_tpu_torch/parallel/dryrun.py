@@ -8,8 +8,8 @@ Starts `n` ranks once with torch.multiprocessing (spawn, as CUDA
 requires), joined through a FileStore in a temporary directory; each rank
 times one all_reduce of the image's size, renders every section on its
 lane shard (on CUDA after an untimed warm-up run of it at 64^2) and
-writes, per section, the image, the overflow, its launches of the cluster
-and of the dense kernel and its seconds to an .npz file there.  The
+writes, per section, the image, the overflow, its launches of the cluster,
+the dense and the rng kernel and its seconds to an .npz file there.  The
 parent then renders the same sections shard after shard in one process
 (the per-shard mirror) and holds each rank's image to it bit for bit.
 Sections, each on the scene whose path it exercises:
@@ -196,6 +196,7 @@ def _all_reduce_ms(mesh, n: int, reps: int = COLLECTIVE_REPS) -> float:
 
 def _rank_main(rank, n, out_dir, device, size, frames, sections, timeout, t_spawn):
     """One rank: join the group, render every section, write its files."""
+    from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
     from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.parallel import shard
@@ -217,17 +218,22 @@ def _rank_main(rank, n, out_dir, device, size, frames, sections, timeout, t_spaw
             shard._all_reduce(torch.zeros(1, device=mesh.device), mesh)  # start together
             KERNEL.reset_counts()
             DENSE_KERNEL.reset_counts()
+            UNIFORM_KERNEL.reset_counts()
             t0 = time.perf_counter()
             img, ov = run_section(section, mesh, size, frames)
             _sync(mesh.device)
             seconds = time.perf_counter() - t0
             widths = sorted(KERNEL.launches_by_width)
+            rng_widths = sorted(UNIFORM_KERNEL.launches_by_width)
             np.savez(os.path.join(out_dir, f"{section}_{rank}.npz"),
                      img=img.cpu().numpy(), overflow=ov, launches=KERNEL.launches,
-                     dense_launches=DENSE_KERNEL.launches,
+                     dense_launches=DENSE_KERNEL.launches, rng_launches=UNIFORM_KERNEL.launches,
                      widths=np.asarray(widths, np.int64),
                      width_launches=np.asarray([KERNEL.launches_by_width[w] for w in widths],
                                                np.int64),
+                     rng_widths=np.asarray(rng_widths, np.int64),
+                     rng_width_launches=np.asarray(
+                         [UNIFORM_KERNEL.launches_by_width[w] for w in rng_widths], np.int64),
                      seconds=seconds, start_s=start_s, all_reduce_ms=all_reduce_ms,
                      backend=torch.distributed.get_backend())
     finally:
@@ -270,7 +276,8 @@ def dryrun_multichip(n: int, device="cuda", size: int = 512, frames: int = 16,
     """Run `sections` on n spawned ranks and hold each to its per-shard
     mirror.  Returns {section: dict(img (W, H, 3) numpy, overflow, cluster
     kernel launches per rank and per rank by live width, dense kernel
-    launches per rank, seconds per rank,
+    launches per rank, rng kernel launches per rank and per rank by
+    elements drawn, seconds per rank,
     frames, mirror_seconds, backend)} plus "start_s": the ranks' seconds
     from spawn to a joined group, and "all_reduce_ms": each rank's ms for
     one all_reduce of a (3, size^2) float32 buffer, the collective that
@@ -311,8 +318,11 @@ def dryrun_multichip(n: int, device="cuda", size: int = 512, frames: int = 16,
         out[section] = dict(
             img=img, overflow=want_ov, launches=[int(f["launches"]) for f in rs],
             dense_launches=[int(f["dense_launches"]) for f in rs],
+            rng_launches=[int(f["rng_launches"]) for f in rs],
             launches_by_width=[dict(zip(f["widths"].tolist(), f["width_launches"].tolist()))
                                for f in rs],
+            rng_launches_by_width=[dict(zip(f["rng_widths"].tolist(),
+                                            f["rng_width_launches"].tolist())) for f in rs],
             seconds=[float(f["seconds"]) for f in rs],
             frames=frames if section == "merged" else 1, mirror_seconds=mirror_s,
             backend=str(rs[0]["backend"]))
@@ -336,9 +346,10 @@ def main(argv=None):
     for section, r in res.items():
         print(f"dryrun_multichip({args.ranks}): {section} ok ({r['backend']}), frame mean "
               f"{float(r['img'].mean()):.5f}, overflow {r['overflow']}, kernel launches "
-              f"{r['launches']} (dense {r['dense_launches']}), {max(r['seconds']) / r['frames'] * 1e3:.3f} ms/frame "
-              f"on the ranks, {r['mirror_seconds'] / r['frames'] * 1e3:.3f} ms/frame shard "
-              f"after shard in one process")
+              f"{r['launches']} (dense {r['dense_launches']}, rng {r['rng_launches']}), "
+              f"{max(r['seconds']) / r['frames'] * 1e3:.3f} ms/frame on the ranks, "
+              f"{r['mirror_seconds'] / r['frames'] * 1e3:.3f} ms/frame shard after shard in "
+              f"one process")
 
 
 if __name__ == "__main__":

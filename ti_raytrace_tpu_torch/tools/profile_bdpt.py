@@ -17,8 +17,8 @@ per frame:
     inside a walk step counts as a pdf);
   * on CUDA, from torch.profiler over one more frame: the device kernels
     launched, their summed device time and its share of that frame's wall
-    time, the cluster_trace kernel's time and launches, and the torch ops
-    with the most device time.
+    time, the cluster_trace and threefry kernels' times and launches, and
+    the torch ops with the most device time.
 
 Prints a readable report to stderr and, last on stdout, one JSON line.
 """
@@ -96,8 +96,9 @@ def count_ops(render):
 
 def device_profile(render, device, top: int = 8) -> dict:
     """One render() under torch.profiler: kernels launched, their device
-    time, its share of the wall time, the cluster_trace kernel's part and
-    the `top` torch ops by self device time (ms)."""
+    time, its share of the wall time, the cluster_trace and threefry
+    (csrc/rng.cu) kernels' parts and the `top` torch ops by self device
+    time (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,6 +116,7 @@ def device_profile(render, device, top: int = 8) -> dict:
         (kernels if evt.device_type == DeviceType.CUDA else ops).append(evt)
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     trace = [e for e in kernels if "cluster_trace_kernel" in e.key]  # "void ...<256>(...)"
+    draws = [e for e in kernels if "threefry_uniform_kernel" in e.key]
     ops = sorted((e for e in ops if dev_us(e) > 0), key=dev_us, reverse=True)[:top]
     return dict(
         profiled_wall_ms=wall_ms,
@@ -123,6 +125,8 @@ def device_profile(render, device, top: int = 8) -> dict:
         busy_share=device_ms / wall_ms,
         cluster_trace_ms=sum(dev_us(e) for e in trace) / 1e3,
         cluster_trace_launches=sum(e.count for e in trace),
+        threefry_ms=sum(dev_us(e) for e in draws) / 1e3,
+        threefry_launches=sum(e.count for e in draws),
         top_ops_ms={e.key: dev_us(e) / 1e3 for e in ops},
     )
 
@@ -184,7 +188,8 @@ def main(argv=None):
         log(f"device: {out['device_kernels']} kernels, {out['device_ms']:.3f} ms over "
             f"{out['profiled_wall_ms']:.3f} ms wall (busy {out['busy_share']:.3f}); "
             f"cluster_trace {out['cluster_trace_ms']:.3f} ms in "
-            f"{out['cluster_trace_launches']} launches")
+            f"{out['cluster_trace_launches']} launches; threefry {out['threefry_ms']:.3f} ms in "
+            f"{out['threefry_launches']} launches")
         for k, ms in out["top_ops_ms"].items():
             log(f"  {ms:9.3f} ms  {k}")
         out["device"] = torch.cuda.get_device_name(device)

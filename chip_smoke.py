@@ -25,8 +25,9 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), its maximum SM
      clock (the threefry kernel's bound), torch/CUDA;
   2. kernel build: csrc/cluster_trace.cu, csrc/dense_trace.cu and
-     csrc/rng.cu, one nvcc for each, started together, timed, with
-     ptxas's registers;
+     csrc/rng.cu, one nvcc for each, started together with the dense
+     kernel's SASS probes (tools/sass.py), timed, with ptxas's registers
+     and each dense part's instructions by pipe;
   3. kernel vs cluster_trace_plain on the bench's own wavefronts, recorded
      at the tracer during one merged group of the main path (16 frames):
      the 512^2 camera wavefront (shared origin, origin-MT table) and the
@@ -71,7 +72,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      merged bounce-1 wavefront (1,048,576 lanes): first the dense kernel
      against the plain sweep `dense_trace._sweep` on the same CUDA tensors,
      t and prim bit for bit (`dense_sweep.kernel_vs_plain`: the kernel's
-     ms, the plain sweep's, the bound and the share), then
+     ms, the plain sweep's, the (warp, group) pairs its cull tested, the
+     bounds and the shares), then
      `dense_trace.trace_shaded` and, called directly, `trace_clustered` on
      the same scene's cluster
      tables — misses equal, t within rtol 1e-5, every differing prim id a
@@ -79,8 +81,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      (sphere.obj holds each triangle three times; the dense sweep reports
      the lowest index, the cluster tracer the first in its sweep order) at
      most 0.1% of hits, phase 3's bar; both times (CUDA events after a
-     warm-up) and each tracer's kernel's alone; the bound is the sweep's
-     arithmetic, lanes x prims x 60 operations at 67 TFLOP/s;
+     warm-up) and each tracer's kernel's alone;
  14. cornell_box at 512^2, `render_film_frames` with its schedule and NEE,
      CORNELL_FRAMES frames; 15. sky_dome and 16. spectral_box at 512^2,
      `render_film_frames_spec` with their schedules, SPEC_FRAMES frames
@@ -125,7 +126,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      batch (phase 9, 2,621,440 lanes, per-lane tmax), each traced whole
      by `accel.trace_shaded` / `accel.trace` (the kernel and its sphere
      tail) and by the oracle, every lane (each wavefront takes the oracle
-     0.5-1.2 s on the H100, 2,621,440 lanes included).  Bar (`_oracle_check`):
+     0.5-1.2 s on the H100, 2,621,440 lanes included); then the dense
+     kernel (through `dense_trace.trace_planar`) against the oracle on the
+     six wavefronts of phase 25, off ties (prim ids that differ on a t-tie
+     are not counted: the dense tracer's tie rule is the lowest index).  Bar (`_oracle_check`):
      |dt| within 1e-5 of max(t, |o|) (a shadow ray leaving a surface
      rounds t against its origin's magnitude; grazing hits beyond it
      counted: at most 0.1% of hits, each within 1e-3), prim ids equal but
@@ -171,12 +175,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      scenes (cornell_box, sky_dome, prism) must launch the dense kernel
      on each rank and never the cluster kernel; every section must launch
      the threefry kernel on each rank;
- 25. dense kernel: cornell_box's (36 prims, one partial tile) and
-     sky_dome's 512^2 camera wavefronts, recorded in phases 14 and 15,
-     through phase 13's comparison; then the six wavefronts of phases 13,
-     19 and 25, each with its path's dense-kernel launches per frame at
-     its width, the kernel's ms, the plain sweep's, the bound, the share
-     and the cluster tracer's ms; any differing bit fails;
+ 25. dense kernel: cornell_box's (36 prims, two groups) and sky_dome's
+     512^2 camera wavefronts, recorded in phases 14 and 15, through phase
+     13's comparison; then the six wavefronts of phases 13, 19 and 25,
+     each with its path's dense-kernel launches per frame at its width,
+     the kernel's ms, the plain sweep's, the (warp, group) pairs tested
+     (the kernel's own counts) and the share culled, the bound of the
+     work the kernel did (`dense_sweep.work_counts`: each part at its
+     instruction count in the kernel's SASS, tools/sass.py, on the pipes
+     that run it) with the kernel's share of it, two bounds of the
+     brute-force work it no longer does (the FP32 peak; the SASS count),
+     for context, and the cluster tracer's ms; any differing bit fails;
  26. rng kernel: the threefry kernel (through `rng.uniform`) against
      `rng.uniform_plain` on the same CUDA device, bit for bit, on every
      shape the paths draw at 512^2 (RNG_SHAPES) and at every other
@@ -202,7 +211,8 @@ counted run, and phase 22's agreement with the oracle per wavefront)
 and the dense kernel (launches summed over the counted runs of phases
 12, 14-16 and 18 and over the ranks of phase 24, max_abs_err over phase
 25's six wavefronts, ms, plain_ms and bound_ms of single_model's camera
-wavefront, and the six rows) and the threefry kernel (launches summed
+wavefront, the six rows with their counts and bounds, and phase 22's
+agreement with the oracle per wavefront) and the threefry kernel (launches summed
 over the counted runs of phases 4, 7, 10, 12, 14-16 and 18 and over the
 ranks of phase 24, max_abs_err over phase 26's shapes, ms, plain_ms and
 bound_ms of the (8, 262,144) draw, each shape's row and each path's draws
@@ -246,11 +256,10 @@ BRUTE_LANES = 4096
 RNG_SHAPES = ((2, 262144), (8, 262144), (8, 838848), (8, 1048576), (5, 262144),
               (6, 131072), (3, 2621440), (262144,))
 RNG_REPS = 100  # timed launches per shape
-SM_COUNT = 132  # H100 SXM
 # per SM and clock: 64 lanes of the integer ALU pipe (shifts, logic, adds),
 # 64 of the FMA pipe (IMAD, which takes the adds the compiler moves there),
-# 128 issued in all (4 schedulers x 32 lanes)
-ALU_PER_CLOCK, ISSUE_PER_CLOCK = 64, 128
+# 128 issued in all (kernel_wavefronts.ISSUE_PER_CLOCK)
+ALU_PER_CLOCK = 64
 RNG_RUNS = []  # (path, rng kernel launches, launches per frame by elements drawn)
 # a hit against a miss, or against another prim at one t, is an edge case
 # where the ray passes within this barycentric distance of the prim's
@@ -293,19 +302,25 @@ def phase_device():
 
 
 def phase_build():
-    """The three kernels built at once, one nvcc per source."""
+    """The three kernels built at once, one nvcc per source, beside the
+    dense kernel's SASS probes."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
     from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
+    from ti_raytrace_tpu_torch.tools import sass
 
     kernels = (("cluster_trace.cu", KERNEL), ("dense_trace.cu", DENSE_KERNEL),
                ("rng.cu", UNIFORM_KERNEL))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
+    with ThreadPoolExecutor(len(kernels) + 1) as pool:
+        probes = pool.submit(sass.dense_counts)
         list(pool.map(lambda k: k[1].library(), kernels))
-    log(f"[2 build] {len(kernels)} kernels in {time.perf_counter() - t0:.2f} s")
+        parts = probes.result()
+    log(f"[2 build] {len(kernels)} kernels and the probes in {time.perf_counter() - t0:.2f} s")
+    for part, counts in parts.items():
+        log(f"[2 build] dense_trace.cu SASS, {part}: {counts}")
     for source, k in kernels:
         info = k.build_info
         log(f"[2 build] {source}: nvcc {info.seconds:.2f} s, built={info.built} -> {info.path}")
@@ -714,7 +729,7 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
     return DENSE_KERNEL.launches, per_frame
 
 
-def _dense_rows(tag, scene, waves, reps, per_frame, tmax=()):
+def _dense_rows(tag, scene, waves, reps, per_frame, sm_mhz, tmax=()):
     """`dense_sweep.compare` on each (name, o, d, shared origin) wavefront
     of `scene`: a line of the dense kernel against the plain sweep per
     wavefront (any differing bit of t or prim fails the run), its path's
@@ -724,21 +739,23 @@ def _dense_rows(tag, scene, waves, reps, per_frame, tmax=()):
 
     rows = []
     for i, (name, o, d, origin) in enumerate(waves):
-        r = compare(scene, o, d, origin, reps, tmax=tmax[i] if tmax else None)
+        r = compare(scene, o, d, origin, reps, sm_mhz, tmax=tmax[i] if tmax else None)
         r.update(wavefront=name, launches_per_frame=per_frame.get(r["lanes"], 0.0))
         log(f"{tag} dense kernel vs plain sweep, {name}: {r['lanes']} lanes x {r['prims']} "
             f"prims; bit-equal t and prim={r['bit_equal']}; kernel {r['kernel_ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by operations, share "
-            f"{r['share']:.4f}; {r['launches_per_frame']:g} launches per frame")
+            f"plain {r['plain_ms']:.3f} ms; {r['tested']} of {r['pairs']} (warp, group) pairs "
+            f"tested (culled {r['culled_frac']:.4f}); {r['launches_per_frame']:g} launches per "
+            f"frame")
         if not r["bit_equal"]:
             fail(f"the dense kernel differs from the plain sweep on the {name} wavefront")
         rows.append(r)
     return rows
 
 
-def phase_single_model(sync):
+def phase_single_model(sync, sm_mhz):
     """Phase 12, then phase 13 on the wavefronts its warm-up group recorded.
-    Returns (dense kernel launches, phase 13's rows)."""
+    Returns (dense kernel launches, phase 13's rows, phase 22's wavefronts:
+    [(path, name, scene, o, d, tmax)])."""
     import torch
 
     from ti_raytrace_tpu_torch import film as film_mod
@@ -758,7 +775,7 @@ def phase_single_model(sync):
 
     if [w[1].shape[1] for w in waves] != [SIZE * SIZE, cfg.group * SIZE * SIZE // 4]:
         fail(f"one single_model group traced the widths {[w[1].shape[1] for w in waves]}")
-    rows = _dense_rows("[13 dense vs cluster]", scene, waves, DENSE_REPS, per_frame)
+    rows = _dense_rows("[13 dense vs cluster]", scene, waves, DENSE_REPS, per_frame, sm_mhz)
     for (name, _, _, _), r in zip(waves, rows):
         log(f"[13 dense vs cluster] {name}: {r['lanes']} lanes x {r['prims']} prims, "
             f"{r['hits']} hits; misses equal={r['misses_equal']}; max|dt| "
@@ -771,11 +788,9 @@ def phase_single_model(sync):
         if not (r["hits"] > 0 and r["misses_equal"] and r["t_ok"] and r["ties_ok"]
                 and r["apart_mismatch_frac"] <= PRIM_TIE_FRAC):
             fail(f"the dense sweep disagrees with the cluster tracer on the {name} wavefront")
-    del waves
-    torch.cuda.empty_cache()
     for r in rows:
         r["path"] = "single_model"
-    return launches, rows
+    return launches, rows, [("single_model", name, scene, o, d, None) for name, o, d, _ in waves]
 
 
 def phase_dense_path(tag, name, frames, sync):
@@ -821,10 +836,11 @@ def phase_dense_parity(name, phase=17):
     _small_parity(f"[{phase} {name} parity]", render)
 
 
-def phase_prism(sync):
+def phase_prism(sync, sm_mhz):
     """Phase 18, then phase 19 on the wavefronts of one more frame.
     Returns (max |dt| of the kernel against its plain version, its rows,
-    dense kernel launches, the dense kernel's rows)."""
+    dense kernel launches, the dense kernel's rows, phase 22's wavefronts:
+    [(path, name, scene, o, d, tmax)])."""
     import dataclasses
 
     import torch
@@ -896,7 +912,7 @@ def phase_prism(sync):
                     for name, o, d, tmax in waves]
     max_err, rows = _compare_all(kernel_waves, tag)
     dense_rows = _dense_rows(tag, scene, [(name, o, d, None) for name, o, d, _ in waves],
-                             DENSE_REPS, per_frame, tmax=[w[3] for w in waves])
+                             DENSE_REPS, per_frame, sm_mhz, tmax=[w[3] for w in waves])
     for (name, o, d, tmax), r in zip(waves, dense_rows):
         r["path"] = "prism_rainbow"
         log(f"{tag} dense vs cluster, {name}: {r['lanes']} lanes x {r['prims']} prims, "
@@ -911,9 +927,10 @@ def phase_prism(sync):
                 and r["prim_mismatch_frac"] <= PRIM_TIE_FRAC
                 and r["at_bound"] <= PRIM_TIE_FRAC * r["lanes"]):
             fail(f"the dense sweep disagrees with the cluster tracer on prism's {name}")
-    del waves, kernel_waves
+    del kernel_waves
     torch.cuda.empty_cache()
-    return max_err, rows, launches, dense_rows
+    return (max_err, rows, launches, dense_rows,
+            [("prism_rainbow", name, scene, o, d, tmax) for name, o, d, tmax in waves])
 
 
 def phase_lbvh(sync):
@@ -990,7 +1007,7 @@ def _edge_margin(scene, o, d, prim):
     return torch.where(scene.prim_type[pid] == C.PRIM_TRI, tri, sph)
 
 
-def _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax=None):
+def _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax=None, off_ties=False):
     """The kernel's (t_k, p_k) against the oracle's (t_o, p_o) on the same
     (N, 3) rays.  Bar: where both hit, |dt| <= T_RTOL * max(t, |o|_inf) —
     a ray leaving a surface and hitting its neighbour at t ~ 1e-4 rounds
@@ -1006,7 +1023,12 @@ def _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax=None):
     at most 1e-4 of the lanes.  With tmax (bounded where > 0) the oracle's
     hit beyond the bound counts as a miss, and a hit within rtol T_RTOL of
     its bound is counted instead (at most PRIM_TIE_FRAC of the lanes).
-    Returns a dict of the figures and `ok`."""
+    off_ties: the share of differing prim ids counts only those that are
+    not t-ties (the dense tracer's lowest-index tie rule differs from the
+    oracle's by design, and sphere.obj's copies of each triangle make most
+    of single_model's hits ties, which the two arithmetics round apart);
+    each differing id must still be a t-tie or an edge.  Returns a dict of the
+    figures and `ok`."""
     import torch
 
     from ti_raytrace_tpu_torch.scene.intersect import intersect_prim_any
@@ -1031,12 +1053,16 @@ def _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax=None):
 
     mism = torch.nonzero(both & (p_k != p_o)).squeeze(1)
     ties_ok = True
+    n_counted = mism.numel()
     if mism.numel():
         a = intersect_prim_any(scene, o[mism], d[mism], p_k[mism])
         b = intersect_prim_any(scene, o[mism], d[mism], p_o[mism])
         edge = _edge_margin(scene, o[mism], d[mism], p_k[mism]).abs() <= EDGE_MARGIN
-        ties_ok = bool((((a - b).abs() <= 1e-3 * b.abs()) | edge).all())
-    frac = mism.numel() / max(n_hit, 1)
+        tie = (a - b).abs() <= 1e-3 * b.abs()
+        ties_ok = bool((tie | edge).all())
+        if off_ties:
+            n_counted = int((~tie).sum())
+    frac = n_counted / max(n_hit, 1)
 
     flip = torch.nonzero(lanes & (hit_o != hit_k)).squeeze(1)
     edges_ok = True
@@ -1046,7 +1072,8 @@ def _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax=None):
     ok = (n_hit > 0 and t_ok and ties_ok and frac <= ORACLE_TIE_FRAC and edges_ok
           and flip.numel() <= 1e-4 * o.shape[0]
           and int(at_bound.sum()) <= PRIM_TIE_FRAC * o.shape[0])
-    return dict(lanes=o.shape[0], hits=n_hit, miss_flips=flip.numel(), edges_ok=edges_ok,
+    return dict(lanes=o.shape[0], hits=n_hit, ties=mism.numel() - n_counted,
+                miss_flips=flip.numel(), edges_ok=edges_ok,
                 max_rel_dt=float(rel.max()), t_beyond_rtol=int((rel > T_RTOL).sum()),
                 max_scaled_dt=float(scaled.max()), t_beyond_scaled=t_off, t_ok=t_ok,
                 prim_mismatch_frac=frac, ties_ok=ties_ok, at_bound=int(at_bound.sum()), ok=ok)
@@ -1057,8 +1084,8 @@ def _oracle_line(tag, name, what, r):
         f"{r['miss_flips']} (all at an edge={r['edges_ok']}); max |dt|/t {r['max_rel_dt']:.3e} "
         f"({r['t_beyond_rtol']} hits beyond {T_RTOL}), max |dt|/max(t, |o|) "
         f"{r['max_scaled_dt']:.3e} ({r['t_beyond_scaled']} beyond; ok={r['t_ok']}); prim mismatch "
-        f"{r['prim_mismatch_frac']:.2e} of hits (ties ok={r['ties_ok']}); {r['at_bound']} lanes "
-        f"at their bound")
+        f"{r['prim_mismatch_frac']:.2e} of hits (ties ok={r['ties_ok']}; {r['ties']} t-ties "
+        f"not counted); {r['at_bound']} lanes at their bound")
     if not r["ok"]:
         fail(f"{what} disagree on the {name} wavefront")
 
@@ -1111,6 +1138,43 @@ def phase_oracle(waves, sync):
                          **{f"oracle_{key}": v for key, v in r.items()}))
         del t_k, p_k, t_o, p_o, o, d
     log(f"{tag} peak device memory {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dense_oracle(waves, sync):
+    """Phase 22 for the dense kernel on [(path, name, scene, o, d, tmax)]:
+    each wavefront traced by `dense_trace.trace_planar` (the kernel) and by
+    the BVH oracle over the scene's own tree, held to `_oracle_check`'s
+    bar off ties; a shadow batch's kernel hits at or beyond its bound read
+    as misses, as its caller reads them.  Returns one row per wavefront."""
+    import torch
+
+    from ti_raytrace_tpu_torch.accel.traverse import trace_closest
+    from ti_raytrace_tpu_torch.ops import dense_trace as dt
+
+    tag = "[22 oracle]"
+    rows = []
+    for path, name, scene, o_pl, d_pl, tmax in waves:
+        n = o_pl.shape[1]
+        t_k, p_k = dt.trace_planar(scene, o_pl, d_pl)
+        if tmax is not None:
+            p_k = torch.where((tmax > 0) & (t_k >= tmax), -1, p_k)
+        o, d = o_pl.T.contiguous(), d_pl.T.contiguous()
+        stats = {}
+        sync()
+        t0 = time.perf_counter()
+        t_o, p_o = trace_closest(scene, o, d, stats=stats)
+        sync()
+        ms_oracle = (time.perf_counter() - t0) * 1e3
+        r = _oracle_check(scene, o, d, t_k, p_k, t_o, p_o, tmax, off_ties=True)
+        log(f"{tag} {path} {name}: {n} lanes: oracle {ms_oracle:.1f} ms, "
+            f"{stats['iterations']} iterations")
+        _oracle_line(tag, f"{path} {name}", "dense kernel vs BVH oracle", r)
+        rows.append(dict(path=path, wavefront=name, lanes=n, oracle_ms=ms_oracle,
+                         oracle_iterations=stats["iterations"],
+                         **{f"oracle_{key}": v for key, v in r.items()}))
+        del t_k, p_k, t_o, p_o, o, d
     torch.cuda.empty_cache()
     return rows
 
@@ -1290,29 +1354,40 @@ def phase_sharded(sync):
     return launches, err, [row], dense
 
 
-def phase_dense_kernel(rows, camera_waves):
+def phase_dense_kernel(rows, camera_waves, sm_mhz):
     """Phase 25: the dense kernel against the plain sweep on the six
     wavefronts of the dense paths.  Phases 13 and 19 held it on
     single_model's camera and merged bounce-1 wavefronts and on prism's
     fused walk and packed shadow batch (`rows`); here cornell_box's and
     sky_dome's 512^2 camera wavefronts, recorded in phases 14 and 15, go
     through the same comparison, then every row is printed with its path's
-    launches per frame at its width, the kernel's and the plain sweep's
-    times, the bound, the share and the cluster tracer's time on the same
+    launches per frame at its width, the kernel's time, the plain
+    sweep's, the (warp, group) pairs tested and the share culled, the
+    bound of the work done and the two brute-force bounds with the
+    kernel's share of each, and the cluster tracer's time on the same
     rays.  Any differing bit of t or prim fails.  Returns the six rows."""
     tag = "[25 dense kernel]"
     rows = list(rows)
     for path, (scene, o, d), per_frame in camera_waves:
         origin = o[:, 0].contiguous() if bool((o == o[:, :1]).all()) else None
-        r, = _dense_rows(tag, scene, [("camera", o, d, origin)], DENSE_REPS, per_frame)
+        r, = _dense_rows(tag, scene, [("camera", o, d, origin)], DENSE_REPS, per_frame,
+                         sm_mhz)
         r["path"] = path
         rows.append(r)
     for r in rows:
         log(f"{tag} {r['path']} {r['wavefront']}: {r['lanes']} lanes x {r['prims']} prims, "
             f"{r['launches_per_frame']:g} launches per frame; kernel {r['kernel_ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms, share "
-            f"{r['share']:.4f}; cluster tracer {r['cluster_ms']:.3f} ms (its kernel "
-            f"{r['cluster_kernel_ms']:.4f} ms); bit-equal={r['bit_equal']}")
+            f"plain {r['plain_ms']:.3f} ms; "
+            f"{r['tested']} of {r['pairs']} (warp, group) pairs tested ({r['tested_rows']} "
+            f"rows), culled {r['culled_frac']:.4f}, {r['guarded']} guarded ({r['looped']} "
+            f"looped, {r['looped_rows']} rows); bound of "
+            f"the work done {r['bound_ms']:.4f} ms (share {r['share']:.4f}; instructions by "
+            f"pipe {r['work_instructions']}); the brute-force work it no longer does: "
+            f"{r['brute_peak_ms']:.4f} ms at the FP32 peak (share {r['brute_peak_share']:.4f}), "
+            f"{r['brute_issue_ms']:.4f} ms at its SASS count (share "
+            f"{r['brute_issue_share']:.4f}); cluster tracer "
+            f"{r['cluster_ms']:.3f} ms (its kernel {r['cluster_kernel_ms']:.4f} ms); "
+            f"bit-equal={r['bit_equal']}")
     if len(rows) != 6 or not all(r["bit_equal"] for r in rows):
         fail("the dense kernel was not held bit for bit against the plain sweep on the six "
              "wavefronts")
@@ -1327,7 +1402,8 @@ def _rng_bound(n, sm_mhz):
     against 4 bytes written per element at the card's memory rate.
     Returns (ms, what bounds it, ops, bytes)."""
     from ti_raytrace_tpu_torch.core.rng import UNIFORM_ALU_OPS, UNIFORM_INT_OPS
-    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_BYTES
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import (ISSUE_PER_CLOCK, PEAK_BYTES,
+                                                             SM_COUNT)
 
     ops, nbytes = UNIFORM_INT_OPS * n, 4 * n
     clocks = max(UNIFORM_ALU_OPS / ALU_PER_CLOCK, UNIFORM_INT_OPS / ISSUE_PER_CLOCK)
@@ -1452,7 +1528,7 @@ def main():
     del scene, vscene  # phase 22 holds what it needs
     torch.cuda.empty_cache()
 
-    dense_launches, dense_rows = phase_single_model(sync)
+    dense_launches, dense_rows, dense_oracle_waves = phase_single_model(sync, sm_mhz)
     camera_waves = []  # phase 25's: cornell_box's and sky_dome's camera wavefronts
     for tag, name, frames in (("[14 cornell_box]", "cornell_box", CORNELL_FRAMES),
                               ("[15 sky_dome]", "sky_dome", SPEC_FRAMES),
@@ -1461,23 +1537,26 @@ def main():
         dense_launches += n
         if name != "spectral_box":
             camera_waves.append((name, wave, per_frame))
+            dense_oracle_waves.append((name, "camera") + wave + (None,))
     for name in ("single_model", "cornell_box", "sky_dome", "spectral_box"):
         phase_dense_parity(name)
-    err_p, prism_rows, n, prism_dense_rows = phase_prism(sync)
+    err_p, prism_rows, n, prism_dense_rows, prism_waves = phase_prism(sync, sm_mhz)
     dense_launches += n
     dense_rows += prism_dense_rows
+    dense_oracle_waves += prism_waves
     max_err = max(max_err, err_p)
     _attach_launches(prism_rows, {})  # the prism path takes the dense tracer: 0 launches
     phase_dense_parity("prism_rainbow", phase=20)
     host = phase_lbvh(sync)
     oracle_rows = phase_oracle(oracle_waves, sync)
-    del oracle_waves
+    dense_oracle_rows = phase_dense_oracle(dense_oracle_waves, sync)
+    del oracle_waves, dense_oracle_waves
     phase_native(host, root)
     n, err_s, shard_rows, n_dense = phase_sharded(sync)
     launches += n
     dense_launches += n_dense
     max_err = max(max_err, err_s)
-    dense_rows = phase_dense_kernel(dense_rows, camera_waves)
+    dense_rows = phase_dense_kernel(dense_rows, camera_waves, sm_mhz)
     del camera_waves
     rng_rows, rng_err = phase_rng(sm_mhz)
     rng_main = next(r for r in rng_rows if r["shape"] == [8, SIZE * SIZE])
@@ -1509,9 +1588,10 @@ def main():
         "ms": dense_rows[0]["kernel_ms"],
         "plain_ms": dense_rows[0]["plain_ms"],
         "bound_ms": dense_rows[0]["bound_ms"],
-        "bound_by": "operations",
+        "bound_by": dense_rows[0]["bound_by"],
         "library_ms": None,  # no PyTorch call computes a closest hit over triangles
         "wavefronts": dense_rows,
+        "oracle": dense_oracle_rows,
     }, {
         "name": "threefry_uniform",
         "route": "cuda",

@@ -2,9 +2,10 @@
 ray against every primitive, in index order.  It is the tracer of scenes
 of at most accel.DENSE_MAX_PRIMS primitives (`accel.trace` dispatches on
 the primitive count).  On a CUDA tensor the sweep is the hand kernel
-csrc/dense_trace.cu (`DENSE_KERNEL`, over the packed rows of
-`dense_table`); on a CPU tensor it is `_sweep`, plain torch ops in blocks
-of BLOCK prims, which the kernel equals bit for bit.
+csrc/dense_trace.cu (`DENSE_KERNEL`, over the scene's grouped table
+`dense_groups`, built once per scene by scene/data.py); on a CPU tensor
+it is `_sweep`, plain torch ops in blocks of BLOCK prims, which the
+kernel equals bit for bit.
 
 All wavefront tensors are planar: rays are (3, N), attributes
 (PRIM_A, N).  The triangle test keeps the reference's operation order as
@@ -34,12 +35,26 @@ import ctypes
 
 import torch
 
+from ti_raytrace_tpu_torch import accel
 from ti_raytrace_tpu_torch.core import constants as C
+from ti_raytrace_tpu_torch.utils.morton import morton3d
 
 BLOCK = 128
 LANE_CHUNK = 65536  # lanes per sweep chunk: a (BLOCK, LANE_CHUNK) f32 temporary is 32 MiB
-TABLE_W = 16  # f32 columns of a dense_table row
+TABLE_W = 16  # f32 columns of a dense_table row and of a group box
 KIND_NONE, KIND_TRI, KIND_SPHERE = 0.0, 1.0, 2.0  # column 9 of a dense_table row
+GROUP = 32  # triangle rows per group of `dense_groups`: one warp's width
+# A group's box is padded by PAD = max(PAD_EXTENT x its largest extent,
+# PAD_SCENE x the scene's largest |coordinate|).
+PAD_EXTENT, PAD_SCENE = 1.0 / 16.0, 2.0 ** -12
+EPS = 2.0 ** -24  # float32's unit roundoff
+# Over the product of its operands' norms, the error of one of the
+# Moller-Trumbore triple products as `_triangle_t_uv` computes them (a
+# cross product, then a dot, no fused multiply-adds): sqrt(3) gamma_5,
+# gamma_5 = 5 EPS / (1 - 5 EPS) < 6 EPS (csrc/dense_trace.cu, "Why the
+# cull is exact").
+NOISE = 3.0 ** 0.5 * 6.0 * EPS
+SAFETY = 1.01  # covers the float32 rounding of the guard's own arithmetic
 
 
 def scene_has_shapes(scene) -> bool:
@@ -157,10 +172,11 @@ def _sweep(scene, o, d, lane_chunk: int = LANE_CHUNK):
 
 
 def dense_table(scene):
-    """The kernel's prim table, (P, TABLE_W) f32 on the scene's device, one
-    row per prim: v0, e1, e2 (columns 0:9), the kind (9: KIND_TRI for a
-    PRIM_TRI prim, KIND_SPHERE for a PRIM_SHAPE prim whose shape is a
-    sphere, else KIND_NONE, a miss), the shape's centre and radius
+    """The prim rows of the dense kernel's table (`dense_groups` reorders
+    them), (P, TABLE_W) f32 on the scene's device, one row per prim: v0,
+    e1, e2 (columns 0:9), the kind (9: KIND_TRI for a PRIM_TRI prim,
+    KIND_SPHERE for a PRIM_SHAPE prim whose shape is a sphere, else
+    KIND_NONE, a miss), the shape's centre and radius
     gathered as `_block_t_uv` gathers them (10:14; zeros in a scene
     without shapes) and two zero columns.  `SceneBuilder` puts the shape
     prims after the triangles (as `scene_has_shapes` assumes), so each
@@ -177,6 +193,86 @@ def dense_table(scene):
         kind = torch.where(sphere, KIND_SPHERE, kind)
     return torch.cat([scene.tri_v0, scene.tri_e1, scene.tri_e2, kind[:, None], centre, rad,
                       torch.zeros((P, 2), dtype=torch.float32, device=dev)], dim=1)
+
+
+def _f32_down(x):
+    """float64 -> the largest float32 <= x."""
+    y = x.float()
+    return torch.where(y.double() > x, torch.nextafter(y, torch.full_like(y, -float("inf"))), y)
+
+
+def _f32_up(x):
+    """float64 -> the smallest float32 >= x."""
+    y = x.float()
+    return torch.where(y.double() < x, torch.nextafter(y, torch.full_like(y, float("inf"))), y)
+
+
+def dense_groups(scene):
+    """The dense kernel's grouped prim table, built once per scene (by
+    scene/data.py::device_scene, whose argument may be any object with
+    the fields `dense_table` reads): (boxes (G, TABLE_W), rows (GROUP * G
+    + S, TABLE_W)), f32 on the scene's device.
+
+    rows: the triangle rows of `dense_table`, ordered by the morton code
+    of their centroids (stable) and cut into G groups of GROUP, the last
+    group padded with KIND_NONE rows (they never hit); then the S sphere
+    rows, a tail that every warp tests.  Rows of kind KIND_NONE (lasers,
+    quads) never hit in `_sweep` and are left out.  Column 14 of every row
+    holds its prim index in the scene (-1 on padding); a triangle row's
+    columns 10:13, which hold a sphere's centre in a sphere row, hold
+    m = (e1 x e2) / (|e1| |e2|), its unit normal scaled by the sine of the
+    angle between its edges (zero for a degenerate triangle).
+
+    boxes, one per group: 0:3 and 3:6 the corners of its triangles'
+    bounding box padded by PAD and rounded outward to float32, 6:9 a
+    centre c, 9 and 10 the grazing guard's k0 and k1, 11 the group's real
+    rows, 12 the least |m| among them, 13:16 zero.  A lane with origin o
+    and direction d is at risk of a rounding-noise hit on a row whose
+    |d . m| < |d| (k0 + k1 |o - c|_1) (csrc/dense_trace.cu, "Why the cull
+    is exact")."""
+    rows = dense_table(scene)
+    dev = rows.device
+    ids = torch.arange(rows.shape[0], dtype=torch.float32, device=dev)
+    rows = torch.cat([rows[:, :14], ids[:, None], rows[:, 15:]], dim=1)
+    tri = rows[rows[:, 9] == KIND_TRI]
+    spheres = rows[rows[:, 9] == KIND_SPHERE]
+    if tri.shape[0] == 0:
+        return torch.zeros((0, TABLE_W), dtype=torch.float32, device=dev), spheres.contiguous()
+    v0, e1, e2 = (tri[:, k:k + 3].double() for k in (0, 3, 6))
+    cen = v0 + (e1 + e2) / 3.0
+    lo, hi = cen.amin(dim=0), cen.amax(dim=0)
+    unit = (cen - lo) / torch.clamp(hi - lo, min=1e-30)
+    tri = tri[torch.sort(morton3d(unit[:, 0], unit[:, 1], unit[:, 2]), stable=True).indices]
+    v0, e1, e2 = (tri[:, k:k + 3].double() for k in (0, 3, 6))
+    edges = torch.linalg.vector_norm(e1, dim=1) * torch.linalg.vector_norm(e2, dim=1)
+    m = torch.where(edges[:, None] > 0.0,
+                    torch.linalg.cross(e1, e2) / torch.clamp(edges, min=1e-300)[:, None], 0.0)
+    tri = torch.cat([tri[:, :10], m.float(), tri[:, 13:]], dim=1)
+
+    n = tri.shape[0]
+    G = (n + GROUP - 1) // GROUP
+    pad = G * GROUP - n
+    verts = torch.stack([v0, v0 + e1, v0 + e2], dim=1)  # (n, 3, 3)
+    inf = torch.full((pad, 3, 3), float("inf"), dtype=torch.float64, device=dev)
+    glo = torch.cat([verts, inf]).view(G, GROUP * 3, 3).amin(dim=1)
+    ghi = torch.cat([verts, -inf]).view(G, GROUP * 3, 3).amax(dim=1)
+    delta = torch.clamp(torch.maximum(PAD_EXTENT * (ghi - glo).amax(dim=1),
+                                      PAD_SCENE * verts.abs().max()), min=2.0 ** -60)
+    c = ((glo + ghi) / 2.0).float()
+    r = (torch.cat([verts, verts[-1:].expand(pad, 3, 3)]).view(G, GROUP * 3, 3)
+         - c.double()[:, None, :]).norm(dim=2).amax(dim=1)
+    k0 = _f32_up((NOISE * (1.0 + 8.0 * r / delta) + 5.0 * EPS) * SAFETY)
+    k1 = _f32_up(8.0 * NOISE / delta * SAFETY)
+    real = torch.clamp(n - GROUP * torch.arange(G, device=dev), max=GROUP).float()
+    m_norm = torch.cat([tri[:, 10:13].double().norm(dim=1),
+                        torch.full((pad,), float("inf"), dtype=torch.float64, device=dev)])
+    m_min = m_norm.view(G, GROUP).amin(dim=1).float()
+    boxes = torch.cat([_f32_down(glo - delta[:, None]), _f32_up(ghi + delta[:, None]), c,
+                       k0[:, None], k1[:, None], real[:, None], m_min[:, None],
+                       torch.zeros((G, 3), dtype=torch.float32, device=dev)], dim=1)
+    padding = torch.zeros((pad, TABLE_W), dtype=torch.float32, device=dev)
+    padding[:, 14] = -1.0
+    return boxes.contiguous(), torch.cat([tri, padding, spheres]).contiguous()
 
 
 class _DenseSweepKernel:
@@ -201,30 +297,42 @@ class _DenseSweepKernel:
 
             lib, self.build_info = cuda_build.load("dense_trace.cu")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.dense_sweep_launch.argtypes = [p, p, i, p, i, p, p, p]
+            lib.dense_sweep_launch.argtypes = [p, p, i, p, i, p, i, p, p, p, p]
             lib.dense_sweep_launch.restype = ctypes.c_int
             lib.dense_sweep_error_string.argtypes = [ctypes.c_int]
             lib.dense_sweep_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def __call__(self, o, d, table):
-        """Closest hit of the planar rays o, d (3, N) over the rows of
-        `table` (dense_table): (t (N,) f32, prim (N,) int32), (INF, -1) on
-        a miss.  Every operand a contiguous float32 tensor on one CUDA
-        device; N = 0 returns empty outputs without a launch."""
+    def __call__(self, o, d, boxes, rows, counts=None):
+        """Closest hit of the planar rays o, d (3, N) over the grouped table
+        (`dense_groups`: boxes (G, TABLE_W), rows (GROUP * G + S, TABLE_W)):
+        (t (N,) f32, prim (N,) int32), (INF, -1) on a miss.  Every operand
+        a contiguous float32 tensor on one CUDA device; N = 0 returns empty
+        outputs without a launch.  counts: None, or a (5,) int32 tensor on
+        the same device to which the launch adds its (warp, group) pairs
+        tested, those whose box no lane of the warp reached (the grazing
+        guard then ran), those whose guard ran its loop over the rows, and
+        the rows (a group's real rows) of the tested pairs and of the
+        looped ones."""
         dev = o.device
-        for name, x in (("o", o), ("d", d), ("table", table)):
+        for name, x in (("o", o), ("d", d), ("boxes", boxes), ("rows", rows)):
             if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
                 raise ValueError(f"dense_sweep: {name} must be a contiguous torch.float32 "
                                  f"tensor on {dev}, got {x.dtype} on {x.device}, "
                                  f"contiguous={x.is_contiguous()}")
         n = o.shape[1] if o.dim() == 2 else -1
-        if (o.dim() != 2 or o.shape[0] != 3 or d.shape != o.shape or table.dim() != 2
-                or table.shape[1] != TABLE_W or table.data_ptr() % 16):
+        G = boxes.shape[0] if boxes.dim() == 2 else -1
+        if (o.dim() != 2 or o.shape[0] != 3 or d.shape != o.shape or boxes.dim() != 2
+                or boxes.shape[1] != TABLE_W or rows.dim() != 2 or rows.shape[1] != TABLE_W
+                or rows.shape[0] < GROUP * G or boxes.data_ptr() % 16 or rows.data_ptr() % 16):
             raise ValueError(f"dense_sweep: bad shapes o {tuple(o.shape)} d {tuple(d.shape)} "
-                             f"table {tuple(table.shape)} (want (3, N), (3, N), "
-                             f"(P, {TABLE_W}) 16-byte aligned)")
+                             f"boxes {tuple(boxes.shape)} rows {tuple(rows.shape)} (want (3, N), "
+                             f"(3, N), (G, {TABLE_W}), (>= {GROUP} G, {TABLE_W}), 16-byte "
+                             f"aligned)")
+        if counts is not None and (counts.device != dev or counts.dtype != torch.int32
+                                   or counts.shape != (5,)):
+            raise ValueError(f"dense_sweep: counts must be a (5,) torch.int32 tensor on {dev}")
         if dev.type != "cuda":
             raise ValueError(f"dense_sweep: the kernel needs CUDA tensors, got {dev}")
         t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -233,8 +341,10 @@ class _DenseSweepKernel:
             return t, prim
         lib = self.library()
         with torch.cuda.device(dev):
-            err = lib.dense_sweep_launch(o.data_ptr(), d.data_ptr(), n, table.data_ptr(),
-                                         table.shape[0], t.data_ptr(), prim.data_ptr(),
+            err = lib.dense_sweep_launch(o.data_ptr(), d.data_ptr(), n, boxes.data_ptr(), G,
+                                         rows.data_ptr(), rows.shape[0] - GROUP * G,
+                                         t.data_ptr(), prim.data_ptr(),
+                                         None if counts is None else counts.data_ptr(),
                                          torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError("dense_sweep kernel launch failed: "
@@ -249,10 +359,15 @@ DENSE_KERNEL = _DenseSweepKernel()
 
 def trace_planar(scene, o, d):
     """Closest hit, planar rays (3, N) -> (t, prim); a miss is (INF, -1).
-    The CUDA kernel for CUDA tensors, `_sweep` for CPU tensors."""
+    The CUDA kernel for CUDA tensors (over the scene's `dense_groups`
+    table), `_sweep` for CPU tensors."""
     with torch.profiler.record_function("dense_trace._sweep"):
         if o.device.type == "cuda":
-            return DENSE_KERNEL(o.contiguous(), d.contiguous(), dense_table(scene))
+            if scene.n_prims > accel.DENSE_MAX_PRIMS and scene.dense_rows.shape[0] == 0:
+                raise ValueError(f"dense_trace: a scene of {scene.n_prims} prims, above "
+                                 f"accel.DENSE_MAX_PRIMS, carries no grouped table")
+            return DENSE_KERNEL(o.contiguous(), d.contiguous(), scene.dense_boxes,
+                                scene.dense_rows)
         if o.device.type == "cpu":
             return _sweep(scene, o, d)
         raise NotImplementedError(f"dense_trace: no implementation for {o.device}")

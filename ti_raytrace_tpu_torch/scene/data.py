@@ -9,17 +9,23 @@ unless the caller names another); other keys (the reference's
 gather from `prim_attr`) stay on the host.  The threaded BVH (`bvh_*`)
 and the vertex streams are what the BVH oracle reads
 (accel/traverse.py, scene/intersect.py).
-The env map's 2x2-block bilinear texture and the cluster tracer's
-supercluster table are built here once instead of per lookup or trace.
+The env map's 2x2-block bilinear texture, the cluster tracer's
+supercluster table and the dense kernel's grouped prim table are built
+here once instead of per lookup or trace (the grouped table only for
+scenes of at most accel.DENSE_MAX_PRIMS primitives, the dense tracer's;
+larger ones carry it empty).
 """
 
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from ti_raytrace_tpu_torch import accel
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.ops.cluster_trace import super_table
+from ti_raytrace_tpu_torch.ops.dense_trace import TABLE_W, dense_groups
 from ti_raytrace_tpu_torch.texture.texture import pack_blocks
 
 
@@ -55,6 +61,10 @@ class SceneData:
     cluster_bounds: torch.Tensor  # (8, C) f32
     cluster_tri: torch.Tensor     # (12, C*B) f32
     super_bounds: torch.Tensor    # (8, C/32) f32 ops/cluster_trace.super_table
+    # --- the dense kernel's grouped prim table (ops/dense_trace.dense_groups)
+    dense_boxes: torch.Tensor   # (G, 16) f32 padded box and guard of each group of 32
+    dense_rows: torch.Tensor    # (32 G + spheres, 16) f32 rows, morton order, sphere tail
+    #                             (both (0, 16) above accel.DENSE_MAX_PRIMS prims)
     # --- threaded BVH, DFS preorder (K = 2P - 1,): accel/lbvh.py, the oracle's
     bvh_min: torch.Tensor       # (K,3) f32
     bvh_max: torch.Tensor       # (K,3) f32
@@ -95,7 +105,7 @@ def device_scene(host: dict, device="cuda") -> SceneData:
             spheres.append((pid, sid))
     env = np.asarray(host["env_img"], np.float32)
     cluster_bounds = arr("cluster_bounds")
-    return SceneData(
+    fields = dict(
         mat_type=arr("mat_type", torch.int32),
         mat_color=arr("mat_color"),
         prim_type=arr("prim_type", torch.int32),
@@ -131,3 +141,8 @@ def device_scene(host: dict, device="cuda") -> SceneData:
         n_lights=int(np.asarray(host["light_prim"]).shape[0]),
         sphere_prims=tuple(spheres),
     )
+    if P <= accel.DENSE_MAX_PRIMS:  # the dense tracer's scenes
+        boxes, rows = dense_groups(SimpleNamespace(device=cluster_bounds.device, **fields))
+    else:
+        boxes = rows = torch.zeros((0, TABLE_W), dtype=torch.float32, device=device)
+    return SceneData(dense_boxes=boxes, dense_rows=rows, **fields)

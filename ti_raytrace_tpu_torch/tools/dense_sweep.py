@@ -12,9 +12,15 @@ two agree (misses, t, prim), whether the dense kernel equals the plain
 sweep `_sweep` bit for bit, and, from CUDA events after a warm-up, the
 dense tracer's time (its table and gathers included), the dense kernel's
 alone, the plain sweep's, the cluster tracer's (its sort and gathers
-included) and the cluster kernel's alone, beside the sweep's arithmetic
-bound, lanes x prims x 60 operations at the FP32 peak, and the dense
-kernel's share of it.  sphere.obj holds each of its 760 triangles three
+included) and the cluster kernel's alone.  Beside the dense kernel's time
+stands the bound of the work it did (`bound_ms`, `work_counts`): its
+(warp, group) pairs tested, from the kernel's own counts, the slab tests
+and grazing guards it ran and the sphere tail, each part at its
+instructions in the kernel's SASS (tools/sass.py) on the pipes that run
+them (`pipe_bound_ms`).  Two bounds of the brute-force work the kernel no
+longer does stand as context: lanes x prims x 60 operations at the FP32
+peak (`sweep_bound_ms`, PR 10's), and lanes x prims triangle tests at
+their SASS count on the pipes (`brute_issue_ms`).  sphere.obj holds each of its 760 triangles three
 times, so most hits are exact t-ties between coincident copies, where the
 dense sweep reports the lowest index and the cluster tracer the first in
 its sweep order: differing prims are counted in all and apart from such
@@ -51,7 +57,8 @@ import time
 import torch
 
 from ti_raytrace_tpu_torch.ops import dense_trace as dt
-from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_FP32, time_ms
+from ti_raytrace_tpu_torch.tools import sass
+from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_FP32, SM_COUNT, time_ms
 
 SIZE = 512
 SCENES = ("cornell_box", "single_model", "sky_dome", "spectral_box", "prism_rainbow")
@@ -62,10 +69,43 @@ T_RTOL = 1e-5
 
 
 def sweep_bound_ms(lanes: int, prims: int) -> float:
-    """The least time the card could take for the sweep's arithmetic:
-    every lane against every prim, MT_OPS operations each, at the FP32
-    peak.  (The bytes, rays in and hits out once, are far below it.)"""
+    """The least time the card could take for the brute-force sweep's
+    arithmetic: every lane against every prim, MT_OPS operations each, at
+    the FP32 peak.  (The bytes, rays in and hits out once, are far below
+    it.)"""
     return lanes * prims * MT_OPS / PEAK_FP32 * 1e3
+
+
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi), MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def pipe_bound_ms(counts: dict, sm_mhz: float) -> float:
+    """Instructions `counts` (by pipe, tools/sass.py) at the least clocks
+    their pipes and the issue rate allow (`sass.clocks`) on each of
+    SM_COUNT SMs at `sm_mhz`.  Under -fmad=false no product fuses with a
+    sum, so the FP32 peak, which counts a fused multiply-add as two, is
+    out of reach."""
+    return sass.clocks(counts) / (SM_COUNT * sm_mhz * 1e6) * 1e3
+
+
+def work_counts(lanes: int, groups: int, tail: int, tested_rows: int, guarded: int,
+                looped_rows: int, parts: dict) -> dict:
+    """Instructions by pipe of the work the kernel did on a wavefront, from
+    its parts' SASS counts (`parts`, `sass.dense_counts()`) and its own
+    counts: each lane's set-up, the triangle rows of the (warp, group)
+    pairs it tested (32 lanes each), a slab test per (lane, group), the
+    grazing guard's threshold on the pairs whose box no lane reached (32
+    lanes each) and its test per row where its loop ran, and every lane
+    against the sphere tail."""
+    runs = {"lane": lanes, "triangle": tested_rows * 32, "slab": lanes * groups,
+            "guard": guarded * 32, "graze": looped_rows * 32, "sphere": lanes * tail}
+    return {pipe: sum(n * parts[part][pipe] for part, n in runs.items())
+            for pipe in parts["triangle"]}
 
 
 @contextlib.contextmanager
@@ -164,27 +204,51 @@ def prism_wavefronts(scene, cfg, spec, cam, frame: int = 1, seed: int = 2):
             int(active.index_select(0, sel).sum()))
 
 
-def kernel_vs_plain(scene, o, d, reps: int) -> dict:
+def kernel_vs_plain(scene, o, d, reps: int, sm_mhz: float) -> dict:
     """The dense kernel against the plain sweep `_sweep` on one wavefront,
     both on the card: bit-equality of t and of prim (`bit_equal`), the
     largest |dt| on the lanes either calls a hit (`max_abs_err`), the
-    kernel's time over `reps` launches after a warm-up (`kernel_ms`, the
-    table made once outside), the plain sweep's over one call after a
-    warm-up (`plain_ms`), the bound and the kernel's share of it."""
-    table = dt.dense_table(scene)
+    kernel's time over `reps` launches after a warm-up (`kernel_ms`), the
+    plain sweep's over one call after a warm-up (`plain_ms`); the (warp,
+    group) pairs one more launch tested, guarded and looped over the rows
+    in its guard (`tested`, `guarded`, `looped`, of `pairs`), the rows of
+    the tested and the looped pairs (`tested_rows`, `looped_rows`) and the
+    share of pairs culled; the bound of the work done (`bound_ms`, by
+    operations, its instructions by pipe in `work_instructions`) and, for
+    context, the brute-force work's at the FP32 peak (`brute_peak_ms`) and
+    at its SASS count (`brute_issue_ms`), each with the kernel's share of
+    it."""
+    boxes, rows = scene.dense_boxes, scene.dense_rows
     o, d = o.contiguous(), d.contiguous()  # as trace_planar hands them to the kernel
-    ms_kernel, (t_k, p_k) = time_ms(lambda: dt.DENSE_KERNEL(o, d, table), reps)
+    ms_kernel, (t_k, p_k) = time_ms(lambda: dt.DENSE_KERNEL(o, d, boxes, rows), reps)
+    counts = torch.zeros(5, dtype=torch.int32, device=o.device)
+    dt.DENSE_KERNEL(o, d, boxes, rows, counts)
+    tested, guarded, looped, tested_rows, looped_rows = counts.tolist()
     ms_plain, (t_p, p_p) = time_ms(lambda: dt._sweep(scene, o, d), 1)
     hit = (p_k >= 0) | (p_p >= 0)
-    bound = sweep_bound_ms(o.shape[1], scene.n_prims)
+    n, groups = o.shape[1], boxes.shape[0]
+    tail = rows.shape[0] - dt.GROUP * groups
+    pairs = -(-n // 256) * 8 * groups  # the launch's warps x groups
+    parts = sass.dense_counts()
+    peak = sweep_bound_ms(n, scene.n_prims)
+    brute = pipe_bound_ms({k: n * scene.n_prims * v for k, v in parts["triangle"].items()},
+                          sm_mhz)
+    work = work_counts(n, groups, tail, tested_rows, guarded, looped_rows, parts)
+    bound = pipe_bound_ms(work, sm_mhz)
     return dict(bit_equal=torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
                 max_abs_err=float(torch.where(hit, (t_k - t_p).abs(), 0.0).max())
-                if o.shape[1] else 0.0,
-                kernel_ms=ms_kernel, plain_ms=ms_plain, bound_ms=bound,
-                share=bound / ms_kernel)
+                if n else 0.0,
+                kernel_ms=ms_kernel, plain_ms=ms_plain, bound_ms=bound, bound_by="operations",
+                share=bound / ms_kernel, work_instructions=work, brute_peak_ms=peak,
+                brute_peak_share=peak / ms_kernel, brute_issue_ms=brute,
+                brute_issue_share=brute / ms_kernel, tested=tested, tested_rows=tested_rows,
+                looped_rows=looped_rows,
+                guarded=guarded, looped=looped, pairs=pairs,
+                culled_frac=1.0 - tested / max(pairs, 1),
+                sm_mhz=sm_mhz)
 
 
-def compare(scene, o, d, shared_origin, reps: int, tmax=None) -> dict:
+def compare(scene, o, d, shared_origin, reps: int, sm_mhz: float, tmax=None) -> dict:
     """The dense tracer and the cluster tracer on one wavefront of a scene
     that has both tables: agreement and times, with `kernel_vs_plain`'s
     figures.  The camera wavefront goes to the cluster tracer as the path
@@ -229,7 +293,7 @@ def compare(scene, o, d, shared_origin, reps: int, tmax=None) -> dict:
         apart_mismatch_frac=int(apart.sum()) / max(n_hit, 1),
         ties_ok=bool(((t_c - t_d).abs()[mism] <= T_RTOL * t_d.abs()[mism]).all()),
         dense_ms=ms_dense, cluster_ms=ms_cluster, cluster_kernel_ms=ms_kernel,
-        at_bound=at_bound, **kernel_vs_plain(scene, o, d, reps),
+        at_bound=at_bound, **kernel_vs_plain(scene, o, d, reps, sm_mhz),
     )
 
 
@@ -241,7 +305,7 @@ def profile_call(render, device) -> dict:
     device-side annotations), so the kernels launched through ctypes,
     which the profiler ties to no torch call, count too.  A sweep's
     kernels are the dense kernel's launches (by name) and those of the
-    torch calls inside a range (`dense_table`'s, or the plain sweep's)."""
+    torch calls inside a range (the plain sweep's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -282,8 +346,13 @@ def _wavefront_line(name, wname, row):
     print(f"{name} {wname}: {row['lanes']} lanes x {row['prims']} prims; dense "
           f"{row['dense_ms']:.3f} ms (kernel {row['kernel_ms']:.4f} ms, bit-equal to the "
           f"plain sweep={row['bit_equal']}, plain {row['plain_ms']:.3f} ms), cluster tracer "
-          f"{row['cluster_ms']:.3f} ms (kernel {row['cluster_kernel_ms']:.4f} ms), bound "
-          f"{row['bound_ms']:.4f} ms (share {row['share']:.4f}); misses equal="
+          f"{row['cluster_ms']:.3f} ms (kernel {row['cluster_kernel_ms']:.4f} ms); "
+          f"{row['tested']} of {row['pairs']} (warp, group) pairs tested (culled "
+          f"{row['culled_frac']:.4f}), {row['guarded']} guarded ({row['looped']} looped); "
+          f"bound of the work done {row['bound_ms']:.4f} ms (share {row['share']:.4f}); the "
+          f"brute-force work it no longer does {row['brute_peak_ms']:.4f} ms at the FP32 peak "
+          f"(share {row['brute_peak_share']:.4f}), {row['brute_issue_ms']:.4f} ms at its SASS "
+          f"count (share {row['brute_issue_share']:.4f}); misses equal="
           f"{row['misses_equal']}, max|dt| {row['max_abs_dt']:.3e} "
           f"ok={row['t_ok']}, prim mismatch {row['prim_mismatch_frac']:.2e} of "
           f"hits ({row['apart_mismatch_frac']:.2e} not between coincident copies), "
@@ -357,7 +426,8 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    print(card, flush=True)
+    sm_mhz = max_sm_mhz()
+    print(f"{card}, max SM clock {sm_mhz:g} MHz", flush=True)
     rows, paths = [], []
     for name in SCENES:
         scene, cfg = EXAMPLES[name](device)
@@ -368,7 +438,8 @@ def main(argv=None):
         if name == "single_model":
             waves, fl, kills = group_wavefronts(scene, cfg, spec, cam, fl)  # the warm-up too
             for wname, o, d, origin in waves:
-                row = dict(scene=name, wavefront=wname, **compare(scene, o, d, origin, a.reps))
+                row = dict(scene=name, wavefront=wname,
+                           **compare(scene, o, d, origin, a.reps, sm_mhz))
                 rows.append(row)
                 _wavefront_line(name, wname, row)
             del waves
@@ -378,7 +449,7 @@ def main(argv=None):
             waves, n_active = prism_wavefronts(scene, cfg, spec, cam)
             for wname, o, d, tmax in waves:
                 row = dict(scene=name, wavefront=wname,
-                           **compare(scene, o, d, None, a.reps, tmax=tmax))
+                           **compare(scene, o, d, None, a.reps, sm_mhz, tmax=tmax))
                 rows.append(row)
                 _wavefront_line(name, wname, row)
             print(f"{name}: {n_active} of the packed shadow batch's lanes are active",
@@ -413,7 +484,7 @@ def main(argv=None):
               flush=True)
         del scene
         torch.cuda.empty_cache()
-    result = dict(card=card, reps=a.reps, wavefronts=rows, paths=paths)
+    result = dict(card=card, sm_mhz=sm_mhz, reps=a.reps, wavefronts=rows, paths=paths)
     if a.out:
         with open(a.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -49,6 +49,8 @@ MT_OPS = {False: 60, True: 34}
 # half of the FP32 peak is reachable.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+SM_COUNT = 132  # H100 SXM
+ISSUE_PER_CLOCK = 128  # instructions an SM issues per clock (4 schedulers x 32 lanes)
 
 
 def bound(args, pairs: int, super_entries: int):

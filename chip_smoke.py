@@ -1242,8 +1242,7 @@ def phase_native(host, root):
         run.main(["benchmark_100k", "--size", str(SMALL), "--frames", "32",
                   "--snapshot-every", "16", "--device", "cuda", "--out", png])
     rep = json.loads(out.getvalue().strip().splitlines()[-1])
-    meter = {k: rep.get(k) for k in ("fps", "spp_per_s", "mrays_per_s", "avg_frame_ms",
-                                     "compile_s")}
+    meter = {k: rep.get(k) for k in ("fps", "spp_per_s", "avg_frame_ms", "compile_s")}
     log(f"{tag} CLI benchmark_100k {SMALL}^2, 32 frames in 2 merged dispatches: meter {meter}; "
         f"ms/frame {rep['ms_per_frame']:.3f}, overflow kills {rep['overflow_kills']}")
     if None in meter.values() or not meter["fps"] > 0.0 or rep["frames"] != 32:

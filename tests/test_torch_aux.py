@@ -35,20 +35,22 @@ def test_metrics_meter():
     from ti_raytrace_tpu.metrics import RenderMeter as JMeter
     from ti_raytrace_tpu_torch.metrics import RenderMeter
 
-    m = RenderMeter(512 * 512)
+    m = RenderMeter()
     m.tick(10.0)  # warm-up (kernel builds)
     for _ in range(5):
         m.tick(0.1)
     assert abs(m.fps - 10.0) < 1e-6
     rep = m.report()
     assert rep["frames"] == 5 and rep["compile_s"] == 10.0
-    assert abs(rep["mrays_per_s"] - 512 * 512 * 10 / 1e6) < 1e-3
+    assert "mrays_per_s" not in rep  # an assumed ray count, not a measurement
 
-    a, b = RenderMeter(64 * 48, 2.5), JMeter(64 * 48, 2.5)
+    a, b = RenderMeter(), JMeter(64 * 48, 2.5)
     for s, n in ((3.2, 16), (0.41, 16), (0.37, 8), (0.123, 3)):
         a.tick(s, n)
         b.tick(s, n)
-    assert a.report() == b.report() and a.summary() == b.summary()
+    want = {k: v for k, v in b.report().items() if k != "mrays_per_s"}
+    assert a.report() == want
+    assert a.summary() == f"{b.fps:6.2f} fps (last {b.last_s * 1e3:6.1f} ms, compile 3.2 s)"
 
 
 def test_profile_trace_and_timed(tmp_path):
@@ -69,9 +71,10 @@ def test_cli_json_line_carries_the_meter(tmp_path, capsys):
     run.main(["cornell_box", "--size", "8", "--frames", "3", "--snapshot-every", "1",
               "--device", "cpu", "--out", str(tmp_path / "c.png")])
     rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    for k in ("fps", "spp_per_s", "mrays_per_s", "avg_frame_ms", "compile_s",
+    for k in ("fps", "spp_per_s", "avg_frame_ms", "compile_s",
               "warmup_ms_per_frame", "ms_per_frame", "overflow_kills"):
         assert k in rep, k
+    assert "mrays_per_s" not in rep
     assert rep["frames"] == 3 and rep["fps"] > 0.0 and rep["compile_s"] > 0.0
     # one frame a dispatch; the warm-up is the first dispatch in both figures
     assert rep["compile_s"] == pytest.approx(rep["warmup_ms_per_frame"] / 1e3, abs=1e-3)

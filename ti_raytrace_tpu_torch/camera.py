@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.core import rng
 
 FULL_HGT = 2.4  # full-frame sensor height
@@ -178,8 +179,11 @@ def ray_directions_morton(spec: CameraSpec, cam: CameraState, frame: int,
     W, H = spec.width, spec.height
     perm, _ = morton_pixel_order(W, H)
     dev = cam.eye.device
-    px = torch.as_tensor((perm // H).astype(np.float32), device=dev)
-    py = torch.as_tensor((perm % H).astype(np.float32), device=dev)
+    # pageable host-to-device copies: each drains the card's queue
+    with metrics.span("sync.upload_pixels"):
+        px = torch.as_tensor((perm // H).astype(np.float32), device=dev)
+    with metrics.span("sync.upload_pixels"):
+        py = torch.as_tensor((perm % H).astype(np.float32), device=dev)
     return ray_directions_from_pixels(spec, cam, frame, key, px, py)
 
 

@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from ti_raytrace_tpu_torch import metrics
+
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -164,14 +166,13 @@ UNIFORM_KERNEL = _UniformKernel()
 def uniform(key, shape, device=None) -> torch.Tensor:
     """jax.random.uniform(key, shape, float32) on `device`: the kernel on a
     CUDA device, `uniform_plain` on the CPU (None: the CPU); any other
-    device raises.  The draw is a profiler range "rng.uniform", so a reader
-    of a trace can attribute the ctypes launch, which the profiler ties to
-    no torch call.  The range is the C++ record function, which makes no
-    top-level torch call (`torch.profiler.record_function` makes two)."""
+    device raises.  The draw is a span "rng.uniform" (metrics.span), so a
+    reader of a trace can attribute the ctypes launch, which the profiler
+    ties to no torch call."""
     dev = device
     if not isinstance(dev, torch.device):  # a torch.device costs a torch call to construct
         dev = torch.device("cpu" if device is None else device)
-    with torch._C._profiler._RecordFunctionFast("rng.uniform"):
+    with metrics.span("rng.uniform"):
         if dev.type == "cuda":
             return UNIFORM_KERNEL(key, shape, dev)
         if dev.type == "cpu":

@@ -37,7 +37,7 @@ is a warm-up (it includes the kernel build on a fresh checkout); ms/frame
 is timed over the remaining calls, each ending in a device synchronize,
 and `metrics.RenderMeter` meters every call the same way (its first
 call is its warm-up).  Prints one JSON line with ms/frame, the meter's
-report (fps, spp_per_s, mrays_per_s, avg_frame_ms, compile_s) and the
+report (fps, spp_per_s, avg_frame_ms, compile_s) and the
 overflow count (compaction
 kills for the path tracers, the walk compaction overflow plus capped
 shadow lanes for BDPT; non-zero means live paths were cut: a bias).
@@ -56,10 +56,10 @@ import numpy as np
 import torch
 
 from ti_raytrace_tpu_torch import film as film_mod
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.examples.preview import OrbitRig, PygamePreview
 from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, framing_params, make_camera
 from ti_raytrace_tpu_torch.integrators import bdpt_rgb, bdpt_spec, debug, pt_rgb, pt_spec
-from ti_raytrace_tpu_torch.metrics import RenderMeter
 
 INTEGRATORS = ("pt_rgb", "pt_spec", "bdpt_rgb", "bdpt_spec", "debug")
 BDPT = ("bdpt_rgb", "bdpt_spec")
@@ -114,27 +114,30 @@ def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int 
     with `sdata` (`spectral_data` of that integrator); the albedo AOV for
     `debug`; pt_rgb (NEE by `has_nee_materials`) in merged groups of
     `group` where the scene has a schedule, group > 1 and n is a whole
-    number of groups, else frame after frame.  Returns (film', overflow)."""
-    if integrator == "bdpt_rgb":
-        return bdpt_rgb.render_film_frames(
-            scene, spec, cam, fl, n_frames=n, n_slices=2,
-            walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
-    if integrator == "bdpt_spec":
-        return bdpt_spec.render_film_frames(scene, spec, cam, fl, sdata, n_frames=n)
-    if integrator == "pt_spec":
-        return pt_spec.render_film_frames_spec(scene, sdata, spec, cam, fl, n_frames=n,
-                                               compaction=cfg.compaction)
-    if integrator == "debug":
-        for _ in range(n):
-            fl = film_mod.accumulate(fl, debug.render_frame(scene, spec, cam, fl.frame, fl.key))
-        return fl, 0
-    nee = pt_rgb.has_nee_materials(scene)
-    if cfg.compaction and group > 1 and n % group == 0:
-        return pt_rgb.render_film_frames_merged(
-            scene, spec, cam, fl, n_frames=n, group=group, compaction=cfg.compaction,
-            nee=nee, pay_divisors=cfg.pay_divisors)
-    return pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=n,
-                                     compaction=cfg.compaction, nee=nee)
+    number of groups, else frame after frame.  The call is the render path's
+    root span, `render.call` (metrics.call_span).  Returns (film', overflow)."""
+    with metrics.call_span("render.call", fl.hdr.device, integrator=integrator, frames=n):
+        if integrator == "bdpt_rgb":
+            return bdpt_rgb.render_film_frames(
+                scene, spec, cam, fl, n_frames=n, n_slices=2,
+                walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
+        if integrator == "bdpt_spec":
+            return bdpt_spec.render_film_frames(scene, spec, cam, fl, sdata, n_frames=n)
+        if integrator == "pt_spec":
+            return pt_spec.render_film_frames_spec(scene, sdata, spec, cam, fl, n_frames=n,
+                                                   compaction=cfg.compaction)
+        if integrator == "debug":
+            for _ in range(n):
+                fl = film_mod.accumulate(fl, debug.render_frame(scene, spec, cam, fl.frame,
+                                                                fl.key))
+            return fl, 0
+        nee = pt_rgb.has_nee_materials(scene)
+        if cfg.compaction and group > 1 and n % group == 0:
+            return pt_rgb.render_film_frames_merged(
+                scene, spec, cam, fl, n_frames=n, group=group, compaction=cfg.compaction,
+                nee=nee, pay_divisors=cfg.pay_divisors)
+        return pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=n,
+                                         compaction=cfg.compaction, nee=nee)
 
 
 def _sync(device):
@@ -198,7 +201,7 @@ def main(argv=None):
         cam = rig.camera()
         preview = PygamePreview(rig, args.size, args.size, cfg.name)
     kills, times, counts = 0, [], []
-    meter = RenderMeter(args.size * args.size)
+    meter = metrics.RenderMeter()
     while fl.frame < args.frames:
         until_snap = args.snapshot_every - fl.frame % args.snapshot_every
         n = min(batch, args.frames - fl.frame, until_snap)

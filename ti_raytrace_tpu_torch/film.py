@@ -12,6 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.io.image import film_to_image, write_png
 from ti_raytrace_tpu_torch.utils.colorsp import tone_map
@@ -32,7 +33,8 @@ def new_film(width: int, height: int, seed: int = 0, device="cuda") -> Film:
 def accumulate(film: Film, radiance: torch.Tensor) -> Film:
     """Running mean with coff = 1/(frame+1)."""
     coff = 1.0 / (torch.tensor(film.frame, dtype=torch.float32) + 1.0)
-    coff = coff.to(film.hdr.device)
+    with metrics.span("sync.upload_weight"):  # a pageable copy: drains the card's queue
+        coff = coff.to(film.hdr.device)
     hdr = radiance * coff + film.hdr * (1.0 - coff)
     return Film(hdr=hdr, frame=film.frame + 1, key=rng.split(film.key)[0])
 
@@ -43,7 +45,8 @@ def accumulate_group(film: Film, radiance_sum: torch.Tensor, n: int) -> Film:
     f = float(np.float32(film.frame))
     # a device tensor, not a Python scalar: CUDA divides by a host scalar
     # as a multiply by its reciprocal, one rounding off the reference
-    denom = torch.tensor(f + n, dtype=torch.float32, device=film.hdr.device)
+    with metrics.span("sync.upload_weight"):  # a pageable copy: drains the card's queue
+        denom = torch.tensor(f + n, dtype=torch.float32, device=film.hdr.device)
     hdr = (film.hdr * f + radiance_sum) / denom
     key = film.key
     for _ in range(n):

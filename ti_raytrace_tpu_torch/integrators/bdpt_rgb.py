@@ -46,6 +46,7 @@ With `spec_ctx=None` every result is the RGB one, bit for bit.
 
 import torch
 
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.accel import trace, trace_capacity, trace_shaded
 from ti_raytrace_tpu_torch.bsdf.planar import disney_evaluate_pdf, disney_sample, glass_sample
 from ti_raytrace_tpu_torch.camera import CameraSpec, project, ray_directions, ray_origins
@@ -87,9 +88,14 @@ def _cos_pdf(c):
     return torch.clamp(c / C.PI, min=0.01)
 
 
+@metrics.spanned("bdpt.pdf")
 def _disney_pdf(n, v, l, metallic, roughness, true_pdf: bool = False):
     _, p = disney_evaluate_pdf(n, v, l, metallic, roughness, true_pdf=true_pdf)
     return torch.clamp(p, min=0.0)
+
+
+# (brdf, pdf) of bsdf/planar, as a span of its own
+_evaluate_pdf = metrics.spanned("bdpt.pdf")(disney_evaluate_pdf)
 
 
 # ------------------------------------------------------------------- walk
@@ -182,12 +188,15 @@ def _walk(scene, origin, direction, beta0, fpdf0, vertex0, max_depth, key,
     N = origin.shape[1]
     sched = dict(compaction or ())
     overflow = torch.zeros((), dtype=torch.int64, device=origin.device)
+    side = "light" if is_light_path else "eye"
     for depth in range(1, max_depth):
-        if depth in sched:
-            overflow = overflow + _compact_walk_front(st, _walk_width(N, sched[depth]))
-        o_t = pv.where(st["alive"], st["o"], torch.full_like(st["o"], PARK))
+        with metrics.span("bdpt.walk", side=side, depth=depth, width=st["o"].shape[1]):
+            if depth in sched:
+                overflow = overflow + _compact_walk_front(st, _walk_width(N, sched[depth]))
+            o_t = pv.where(st["alive"], st["o"], torch.full_like(st["o"], PARK))
         traced = trace_shaded(scene, o_t, st["d"])
-        _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced, spec_ctx)
+        with metrics.span("bdpt.walk", side=side, depth=depth, width=o_t.shape[1]):
+            _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced, spec_ctx)
     return st["verts"], st["count"], overflow
 
 
@@ -282,8 +291,8 @@ def _walk_step(scene, st, depth, key, is_light_path, corrected, o_t, traced, spe
     glass_ior = hit.mat_p0 if spec_ctx is None else bk7_ior(spec_ctx.lam)
     g_dir, g_forb = glass_sample(u[0], d, hit.normal, glass_ior)
     d_dir = disney_sample(u[0:3], d, fnormal, hit.mat_p0, hit.mat_p1)
-    d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1,
-                                        true_pdf=corrected)
+    d_brdf, d_pdf = _evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1,
+                                  true_pdf=corrected)
 
     next_dir = pv.where(is_glass, g_dir, d_dir)
     f_or_b = torch.where(is_glass, g_forb, 1.0)
@@ -429,35 +438,42 @@ def build_subpaths(scene, o, d, k_eye, k_light, eye_depth: int = EYE_MAX_DEPTH,
     sched_e, sched_l = walk_compaction or (None, None)
     sched_e, sched_l = dict(sched_e or ()), dict(sched_l or ())
 
-    if fpdf0 is None:
-        fpdf0 = torch.ones((N,), dtype=torch.float32, device=dev)
-    c = _channels(spec_ctx)
-    st_e = _walk_state(o, d, torch.ones((c, N), dtype=torch.float32, device=dev), fpdf0,
-                       _eye_vertex0(o, d, c), eye_depth, spec_ctx)
-    k_sample, k_lwalk = rng.split(k_light)
-    lo, ld, lbeta0, ldir_pdf, v0l = _light_init(scene, N, k_sample, corrected, spec_ctx)
-    st_l = _walk_state(lo, ld, lbeta0, ldir_pdf, v0l, light_depth, spec_ctx)
+    with metrics.span("bdpt.walk", side="eye", depth=0, width=N):
+        if fpdf0 is None:
+            fpdf0 = torch.ones((N,), dtype=torch.float32, device=dev)
+        c = _channels(spec_ctx)
+        st_e = _walk_state(o, d, torch.ones((c, N), dtype=torch.float32, device=dev), fpdf0,
+                           _eye_vertex0(o, d, c), eye_depth, spec_ctx)
+    with metrics.span("bdpt.walk", side="light", depth=0, width=N):
+        k_sample, k_lwalk = rng.split(k_light)
+        lo, ld, lbeta0, ldir_pdf, v0l = _light_init(scene, N, k_sample, corrected, spec_ctx)
+        st_l = _walk_state(lo, ld, lbeta0, ldir_pdf, v0l, light_depth, spec_ctx)
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
 
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(1, max(eye_depth, light_depth)):
         do_e = depth < eye_depth
         do_l = depth < light_depth
-        if do_e and depth in sched_e:
-            overflow = overflow + _compact_walk_front(st_e, _walk_width(N, sched_e[depth]))
-        if do_l and depth in sched_l:
-            overflow = overflow + _compact_walk_front(st_l, _walk_width(N, sched_l[depth]))
-        fronts = [(st, k, light_path) for st, k, light_path, on in
-                  ((st_e, k_eye, False, do_e), (st_l, k_lwalk, True, do_l)) if on]
-        o_t = [pv.where(st["alive"], st["o"], torch.full_like(st["o"], PARK))
-               for st, _, _ in fronts]
-        tt = trace_shaded(scene, torch.cat(o_t, dim=1),
-                          torch.cat([st["d"] for st, _, _ in fronts], dim=1))
+        # the fronts of this depth, fused into one wavefront for the trace
+        with metrics.span("bdpt.walk", side="fused", depth=depth):
+            if do_e and depth in sched_e:
+                overflow = overflow + _compact_walk_front(st_e, _walk_width(N, sched_e[depth]))
+            if do_l and depth in sched_l:
+                overflow = overflow + _compact_walk_front(st_l, _walk_width(N, sched_l[depth]))
+            fronts = [(st, k, light_path) for st, k, light_path, on in
+                      ((st_e, k_eye, False, do_e), (st_l, k_lwalk, True, do_l)) if on]
+            o_t = [pv.where(st["alive"], st["o"], torch.full_like(st["o"], PARK))
+                   for st, _, _ in fronts]
+            o_cat = torch.cat(o_t, dim=1)
+            d_cat = torch.cat([st["d"] for st, _, _ in fronts], dim=1)
+        tt = trace_shaded(scene, o_cat, d_cat)
         start = 0
         for (st, k, light_path), o_f in zip(fronts, o_t):
             w = o_f.shape[1]
-            traced = tuple(x[..., start:start + w] for x in tt)
+            with metrics.span("bdpt.walk", side="light" if light_path else "eye", depth=depth,
+                              width=w):
+                traced = tuple(x[..., start:start + w] for x in tt)
+                _walk_step(scene, st, depth, k, light_path, corrected, o_f, traced, spec_ctx)
             start += w
-            _walk_step(scene, st, depth, k, light_path, corrected, o_f, traced, spec_ctx)
 
     out = (st_e["verts"], st_e["count"], st_l["verts"], st_l["count"])
     return out + (overflow,) if return_overflow else out
@@ -469,6 +485,7 @@ def _remap0(f):
     return torch.where(f == 0.0, 1.0, f)
 
 
+@metrics.spanned("bdpt.mis")
 def _mis_weight(eye, light, e, l, ov):
     """1 / (1 + sum of pdf-ratio products).  `ov` carries the connection's
     endpoint overrides: eye_rpdf_e1, eye_rpdf_e2, light_rpdf_l1,
@@ -551,6 +568,7 @@ def _project_light(spec, cam, lv, active):
     return px, py, wi, ndl, sel
 
 
+@metrics.spanned("bdpt.shadow_requests")
 def _shadow_requests(scene, spec, cam, eye, eye_count, light, light_count, key, pairs):
     """Every l > 0 strategy's shadow ray (pass 1 of _connections): lists
     of (3, N) origins and directions, (N,) distance bounds, (N,) active
@@ -601,6 +619,7 @@ def _shadow_requests(scene, spec, cam, eye, eye_count, light, light_count, key, 
     return req_o, req_d, req_tmax, req_sel, req_tags
 
 
+@metrics.spanned("bdpt.splat")
 def _splat_add(flat, pixels, values):
     """flat (rows, 3) += values (n, 3) at row ids (n,), in place, as one
     deterministic scatter-add (see the module docstring)."""
@@ -613,6 +632,7 @@ def _splat_add(flat, pixels, values):
         torch.use_deterministic_algorithms(was, warn_only=warn_only)
 
 
+@metrics.spanned("bdpt.connections")
 def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
                  corrected: bool = False, max_depth: int = MAX_DEPTH,
                  unweighted: bool = False, shadow_cap=None, spec_ctx=None, strategies=None):
@@ -699,8 +719,8 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
             cam_o = cam.eye[:, None].expand(3, N)
             _, sh_prim = occ[(e, l)]
             sel = sel & (sh_prim == lv["prim"])
-            brdf, pdf = disney_evaluate_pdf(lv["snormal"], -lv["wo"], -wi, lv["metallic"],
-                                            lv["roughness"], true_pdf=corrected)
+            brdf, pdf = _evaluate_pdf(lv["snormal"], -lv["wo"], -wi, lv["metallic"],
+                                      lv["roughness"], true_pdf=corrected)
             tdist = torch.clamp(pv.length(lv["pos"] - cam_o), min=1e-6)
             g = torch.abs(ndl) / (tdist * tdist)
             sel = sel & (pdf > 0.0)
@@ -772,8 +792,8 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
             sel = active & (ev["delta"] != 1.0) & (ev["vtype"] == V_SURFACE)
             t_sh, sh_prim = occ[(e, l)]
             sel = sel & (sh_prim == ls["prim"]) & (t_sh > C.EPS)
-            brdf, pdf = disney_evaluate_pdf(ev["snormal"], -ev["wo"], -wi, ev["metallic"],
-                                            ev["roughness"], true_pdf=corrected)
+            brdf, pdf = _evaluate_pdf(ev["snormal"], -ev["wo"], -wi, ev["metallic"],
+                                      ev["roughness"], true_pdf=corrected)
             sel = sel & (pdf > 0.0)
             g = torch.abs(ndl_e * ndl_l) / torch.clamp(t_sh * t_sh, min=1e-12)
             beta_e = ev["beta"] / _cos_in(ev)[None] if corrected else ev["beta"]
@@ -838,11 +858,10 @@ def _connections(scene, spec, cam, eye, eye_count, light, light_count, key,
             ndl_e = pv.dot(dirv, ev["snormal"])
             t_sh, sh_prim = occ[(e, l)]
             sel = sel & (sh_prim == ev["prim"]) & (t_sh > C.EPS)
-            brdf_l, pdf_l = disney_evaluate_pdf(lv["snormal"], -lv["wo"], dirv, lv["metallic"],
-                                                lv["roughness"], true_pdf=corrected)
-            brdf_e, pdf_e = disney_evaluate_pdf(ev["snormal"], -ev["wo"], -dirv,
-                                                ev["metallic"], ev["roughness"],
-                                                true_pdf=corrected)
+            brdf_l, pdf_l = _evaluate_pdf(lv["snormal"], -lv["wo"], dirv, lv["metallic"],
+                                          lv["roughness"], true_pdf=corrected)
+            brdf_e, pdf_e = _evaluate_pdf(ev["snormal"], -ev["wo"], -dirv, ev["metallic"],
+                                          ev["roughness"], true_pdf=corrected)
             sel = sel & (brdf_l > 0.0) & (brdf_e > 0.0)
             g = torch.abs(ndl_e * ndl_l) / (dist * dist)
             if corrected:
@@ -994,20 +1013,23 @@ def render_frame_sliced(scene, spec: CameraSpec, cam, frame, key, n_slices: int 
     reference's: split(key, 4), each folded with the slice index."""
     N = spec.width * spec.height
     ns = N // n_slices
-    keys = rng.split(key, 4)
-    o_full, d_full = _camera_rays(spec, cam, frame, keys[0])
-    parts = []
-    splat_total = torch.zeros((spec.width, spec.height, 3), dtype=torch.float32,
-                              device=d_full.device)
-    overflow_total = torch.zeros((), dtype=torch.int64, device=d_full.device)
+    with metrics.span("bdpt.camera"):
+        keys = rng.split(key, 4)
+        o_full, d_full = _camera_rays(spec, cam, frame, keys[0])
+        parts = []
+        splat_total = torch.zeros((spec.width, spec.height, 3), dtype=torch.float32,
+                                  device=d_full.device)
+        overflow_total = torch.zeros((), dtype=torch.int64, device=d_full.device)
     for i in range(n_slices):
-        sl = slice(i * ns, (i + 1) * ns)
-        rad, splat, ov = _render_slice(scene, spec, cam, o_full[:, sl], d_full[:, sl], keys,
-                                       i, max_depth, shadow_cap, walk_compaction)
-        parts.append(rad)
-        splat_total = splat_total + splat
-        overflow_total = overflow_total + ov
-    img = torch.cat(parts, dim=0).reshape(spec.width, spec.height, 3) + splat_total
+        with metrics.span("bdpt.slice", slice=i, width=ns):
+            sl = slice(i * ns, (i + 1) * ns)
+            rad, splat, ov = _render_slice(scene, spec, cam, o_full[:, sl], d_full[:, sl], keys,
+                                           i, max_depth, shadow_cap, walk_compaction)
+            parts.append(rad)
+            splat_total = splat_total + splat
+            overflow_total = overflow_total + ov
+    with metrics.span("bdpt.splat"):
+        img = torch.cat(parts, dim=0).reshape(spec.width, spec.height, 3) + splat_total
     return (img, overflow_total) if return_overflow else img
 
 
@@ -1024,6 +1046,8 @@ def render_film_frames(scene, spec: CameraSpec, cam, film, n_frames: int = 4,
         img, ov = render_frame_sliced(scene, spec, cam, film.frame, film.key, n_slices,
                                       max_depth=max_depth, shadow_cap=shadow_cap,
                                       walk_compaction=walk_compaction, return_overflow=True)
-        film = film_mod.accumulate(film, img)
-        total = total + ov
-    return film, int(total)
+        with metrics.span("film.accumulate"):
+            film = film_mod.accumulate(film, img)
+            total = total + ov
+    with metrics.span("sync.overflow"):
+        return film, int(total)

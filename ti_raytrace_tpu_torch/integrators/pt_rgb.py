@@ -37,6 +37,7 @@ PRESORT_HALF, TRACE0_COMPACT, NEE_FROM_EMITTER_PARITY).
 import torch
 
 from ti_raytrace_tpu_torch import film as film_mod
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.accel import needs_presort, trace, trace_shaded
 from ti_raytrace_tpu_torch.bsdf.planar import disney_evaluate_pdf, disney_sample, glass_sample
 from ti_raytrace_tpu_torch.camera import (CameraSpec, morton_pixel_order, ray_directions,
@@ -88,30 +89,34 @@ def _sort_carry(scene, carry):
     morton) order: one stable sort of the composed 61-bit key."""
     from ti_raytrace_tpu_torch.ops.cluster_trace import coherence_key60
 
-    dead = (~carry["alive"]).to(torch.int64)
-    key = coherence_key60(scene, carry["origin"], carry["direction"])
-    return _permute(carry, _stable_order((dead << 60) | key))
+    with metrics.span("trace.order", carry=True):
+        dead = (~carry["alive"]).to(torch.int64)
+        key = coherence_key60(scene, carry["origin"], carry["direction"])
+        return _permute(carry, _stable_order((dead << 60) | key))
 
 
 # ---------------------------------------------------------------- bounce
 
-def _bounce(scene, carry, key, nee: bool = False, presort: bool = False,
+def _bounce(scene, carry, key, depth: int, nee: bool = False, presort: bool = False,
             shared_origin=None, corrected: bool = False):
-    """One bounce: trace the carry's rays and shade the hits.
+    """Bounce `depth` (its uniforms from fold_in(key, depth)): trace the
+    carry's rays and shade the hits.
     shared_origin: a pinhole camera wavefront in static morton lane order
     (coherent as it is); presort=True: sort the carry first and trace
     with a per-tile front-to-back order (the compacted deep phases);
     otherwise the tracer coherence-sorts the rays around the trace (its
     sorted mode)."""
-    if presort:
-        carry = _sort_carry(scene, carry)
-    o = carry["origin"]
-    d = carry["direction"]
-    u = rng.uniform(key, (8, o.shape[1]), device=o.device)
-    t, prim, uv_bary, attr = trace_shaded(
-        scene, o, d, sort_rays=not presort and shared_origin is None, sort_small=True,
-        shared_origin=shared_origin, tile_order=presort)
-    return _shade(scene, carry, u, t, prim, uv_bary, attr, nee, corrected)
+    with metrics.span("pt.bounce", depth=depth, width=carry["origin"].shape[1]):
+        key = rng.fold_in(key, depth)
+        if presort:
+            carry = _sort_carry(scene, carry)
+        o = carry["origin"]
+        d = carry["direction"]
+        u = rng.uniform(key, (8, o.shape[1]), device=o.device)
+        t, prim, uv_bary, attr = trace_shaded(
+            scene, o, d, sort_rays=not presort and shared_origin is None, sort_small=True,
+            shared_origin=shared_origin, tile_order=presort)
+        return _shade(scene, carry, u, t, prim, uv_bary, attr, nee, corrected)
 
 
 def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
@@ -121,107 +126,111 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
     roulette and the carry update, from a hit record and per-lane
     uniforms u (8, N): rows 0:3 NEE, 3:6 BSDF, 6 roulette.  corrected:
     the Disney pdfs are the sampler's true densities."""
-    o = carry["origin"]
-    d = carry["direction"]
-    alive = carry["alive"]
-    u_nee = u[0:3]
-    u_bsdf = u[3:6]
-    u_rr = u[6]
+    with metrics.span("pt.shade"):
+        o = carry["origin"]
+        d = carry["direction"]
+        alive = carry["alive"]
+        u_nee = u[0:3]
+        u_bsdf = u[3:6]
+        u_rr = u[6]
 
-    hit = decode_hit(o, d, t, prim, uv_bary, attr)
-    valid = hit.valid & alive
-    fnormal = pv.faceforward(hit.normal, -d, hit.gnormal)
-    reflect_color = srgb_to_lrgb(hit.mat_color)
+        hit = decode_hit(o, d, t, prim, uv_bary, attr)
+        valid = hit.valid & alive
+        fnormal = pv.faceforward(hit.normal, -d, hit.gnormal)
+        reflect_color = srgb_to_lrgb(hit.mat_color)
 
-    throughput = carry["throughput"]
-    radiance = carry["radiance"]
-    brdf_pdf_prev = carry["brdf_pdf"]
-    perfect_spec = carry["perfect_spec"]
+        throughput = carry["throughput"]
+        radiance = carry["radiance"]
+        brdf_pdf_prev = carry["brdf_pdf"]
+        perfect_spec = carry["perfect_spec"]
 
-    # miss: defer the env lookup; record direction + weight
-    miss = alive & ~hit.valid
-    carry_miss_dir = pv.where(miss, d, carry["miss_dir"])
-    carry_miss_w = torch.where(miss[None], throughput, carry["miss_weight"])
+        # miss: defer the env lookup; record direction + weight
+        miss = alive & ~hit.valid
+        carry_miss_dir = pv.where(miss, d, carry["miss_dir"])
+        carry_miss_w = torch.where(miss[None], throughput, carry["miss_weight"])
 
-    # emitter hit: terminate.  Under NEE the BSDF-sampled hit competes
-    # with light sampling (power heuristic, camera and specular chains
-    # count in full); without NEE the emission counts in full
-    is_light = valid & (hit.mat_type == C.MAT_LIGHT)
-    emitted = throughput * hit.mat_color
+        # emitter hit: terminate.  Under NEE the BSDF-sampled hit competes
+        # with light sampling (power heuristic, camera and specular chains
+        # count in full); without NEE the emission counts in full
+        is_light = valid & (hit.mat_type == C.MAT_LIGHT)
+        emitted = throughput * hit.mat_color
+        if nee:
+            fcos = torch.abs(pv.dot(d, hit.gnormal))
+            area = hit.area * scene.n_lights
+            light_pdf_hit = (t * t) / torch.clamp(area * fcos, min=1e-12)
+            mis_w = torch.where(perfect_spec, 1.0, power_heuristic(brdf_pdf_prev, light_pdf_hit))
+            emitted = mis_w[None] * throughput * hit.mat_color
+        radiance = radiance + torch.where(is_light[None], emitted, 0.0)
+
+        is_glass = valid & (hit.mat_type == C.MAT_GLASS)
+        g_dir, g_forb = glass_sample(u_bsdf[0], d, hit.normal, hit.mat_p0)
+
+        is_disney = valid & (hit.mat_type != C.MAT_GLASS) & (hit.mat_type != C.MAT_LIGHT)
     if nee:
-        fcos = torch.abs(pv.dot(d, hit.gnormal))
-        area = hit.area * scene.n_lights
-        light_pdf_hit = (t * t) / torch.clamp(area * fcos, min=1e-12)
-        mis_w = torch.where(perfect_spec, 1.0, power_heuristic(brdf_pdf_prev, light_pdf_hit))
-        emitted = mis_w[None] * throughput * hit.mat_color
-    radiance = radiance + torch.where(is_light[None], emitted, 0.0)
-
-    is_glass = valid & (hit.mat_type == C.MAT_GLASS)
-    g_dir, g_forb = glass_sample(u_bsdf[0], d, hit.normal, hit.mat_p0)
-
-    is_disney = valid & (hit.mat_type != C.MAT_GLASS) & (hit.mat_type != C.MAT_LIGHT)
-    if nee:
-        ls = sample_li(scene, hit.pos, u_nee)
-        ndl_surf = pv.dot(fnormal, ls["direction"])
-        ndl_light = pv.dot(ls["normal"], ls["direction"])
-        nee_geo_ok = is_disney & (ndl_surf < 0.0) & (ndl_light > 0.0)
-        # the shadow ray starts just off the sampled emitter point and
-        # must hit this lane's own prim first (the reference's unbiased
-        # default; its on-emitter variant is a measured-loss switch).
-        # Lanes without a Disney hit are parked far outside the scene:
-        # their tiles fail every cluster slab test
-        sh_o = pv.where(is_disney, pv.offset_ray(ls["pos"], ls["normal"]),
-                        torch.full_like(ls["pos"], 1e9))
+        with metrics.span("pt.nee"):
+            ls = sample_li(scene, hit.pos, u_nee)
+            ndl_surf = pv.dot(fnormal, ls["direction"])
+            ndl_light = pv.dot(ls["normal"], ls["direction"])
+            nee_geo_ok = is_disney & (ndl_surf < 0.0) & (ndl_light > 0.0)
+            # the shadow ray starts just off the sampled emitter point and
+            # must hit this lane's own prim first (the reference's unbiased
+            # default; its on-emitter variant is a measured-loss switch).
+            # Lanes without a Disney hit are parked far outside the scene:
+            # their tiles fail every cluster slab test
+            sh_o = pv.where(is_disney, pv.offset_ray(ls["pos"], ls["normal"]),
+                            torch.full_like(ls["pos"], 1e9))
         _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
-        unoccluded = sh_prim == prim
-        nee_brdf, nee_pdf = disney_evaluate_pdf(fnormal, -d, -ls["direction"],
-                                                hit.mat_p0, hit.mat_p1, true_pdf=corrected)
-        light_pdf = (ls["dist"] * ls["dist"] * ls["choice_pdf"]
-                     / torch.clamp(ndl_light, min=1e-12))
-        nee_ok = nee_geo_ok & unoccluded & (nee_pdf > 0.0)
-        nee_w = (power_heuristic(light_pdf, nee_pdf) / torch.clamp(light_pdf, min=1e-4)
-                 * nee_brdf * torch.abs(ndl_surf))
-        radiance = radiance + torch.where(
-            nee_ok[None], nee_w[None] * ls["emission"] * throughput * reflect_color, 0.0)
+        with metrics.span("pt.nee"):
+            unoccluded = sh_prim == prim
+            nee_brdf, nee_pdf = disney_evaluate_pdf(fnormal, -d, -ls["direction"],
+                                                    hit.mat_p0, hit.mat_p1, true_pdf=corrected)
+            light_pdf = (ls["dist"] * ls["dist"] * ls["choice_pdf"]
+                         / torch.clamp(ndl_light, min=1e-12))
+            nee_ok = nee_geo_ok & unoccluded & (nee_pdf > 0.0)
+            nee_w = (power_heuristic(light_pdf, nee_pdf) / torch.clamp(light_pdf, min=1e-4)
+                     * nee_brdf * torch.abs(ndl_surf))
+            radiance = radiance + torch.where(
+                nee_ok[None], nee_w[None] * ls["emission"] * throughput * reflect_color, 0.0)
 
-    d_dir = disney_sample(u_bsdf, d, fnormal, hit.mat_p0, hit.mat_p1)
-    d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1,
-                                        true_pdf=corrected)
-    d_brdf = d_brdf * torch.abs(pv.dot(hit.normal, d_dir))
+    with metrics.span("pt.shade"):
+        d_dir = disney_sample(u_bsdf, d, fnormal, hit.mat_p0, hit.mat_p1)
+        d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1,
+                                            true_pdf=corrected)
+        d_brdf = d_brdf * torch.abs(pv.dot(hit.normal, d_dir))
 
-    next_dir = pv.where(is_glass, g_dir, d_dir)
-    f_or_b = torch.where(is_glass, g_forb, 1.0)
-    brdf = torch.where(is_glass, 1.0, d_brdf)
-    brdf_pdf = torch.where(is_glass, 1.0, d_pdf)
-    new_perfect_spec = is_glass | (~is_disney & perfect_spec)
+        next_dir = pv.where(is_glass, g_dir, d_dir)
+        f_or_b = torch.where(is_glass, g_forb, 1.0)
+        brdf = torch.where(is_glass, 1.0, d_brdf)
+        brdf_pdf = torch.where(is_glass, 1.0, d_pdf)
+        new_perfect_spec = is_glass | (~is_disney & perfect_spec)
 
-    next_origin = pv.offset_ray(hit.pos, fnormal * pv.sign_nonzero(f_or_b)[None])
+        next_origin = pv.offset_ray(hit.pos, fnormal * pv.sign_nonzero(f_or_b)[None])
 
-    # Beer-Lambert transmission roulette
-    transmitted = f_or_b < 0.0
-    beer_r = torch.exp(-t / torch.clamp(hit.mat_p1, min=1e-12))
-    beer_kill = transmitted & (u_rr >= beer_r)
+        # Beer-Lambert transmission roulette
+        transmitted = f_or_b < 0.0
+        beer_r = torch.exp(-t / torch.clamp(hit.mat_p1, min=1e-12))
+        beer_kill = transmitted & (u_rr >= beer_r)
 
-    cont = (is_glass | is_disney) & (brdf_pdf > 0.0) & ~beer_kill
-    throughput = torch.where(
-        cont[None],
-        throughput * (brdf / torch.clamp(brdf_pdf, min=1e-12))[None] * reflect_color,
-        throughput,
-    )
-    return dict(
-        # terminated lanes are parked far away: their tiles fail every
-        # cluster slab test
-        origin=pv.where(cont, next_origin, torch.full_like(o, 1e9)),
-        direction=pv.where(cont, next_dir, d),
-        throughput=throughput,
-        radiance=radiance,
-        alive=cont,
-        brdf_pdf=torch.where(cont, brdf_pdf, brdf_pdf_prev),
-        perfect_spec=torch.where(cont, new_perfect_spec, perfect_spec),
-        miss_dir=carry_miss_dir,
-        miss_weight=carry_miss_w,
-        pixel=carry["pixel"],
-    )
+        cont = (is_glass | is_disney) & (brdf_pdf > 0.0) & ~beer_kill
+        throughput = torch.where(
+            cont[None],
+            throughput * (brdf / torch.clamp(brdf_pdf, min=1e-12))[None] * reflect_color,
+            throughput,
+        )
+        return dict(
+            # terminated lanes are parked far away: their tiles fail every
+            # cluster slab test
+            origin=pv.where(cont, next_origin, torch.full_like(o, 1e9)),
+            direction=pv.where(cont, next_dir, d),
+            throughput=throughput,
+            radiance=radiance,
+            alive=cont,
+            brdf_pdf=torch.where(cont, brdf_pdf, brdf_pdf_prev),
+            perfect_spec=torch.where(cont, new_perfect_spec, perfect_spec),
+            miss_dir=carry_miss_dir,
+            miss_weight=carry_miss_w,
+            pixel=carry["pixel"],
+        )
 
 
 def _env_radiance(scene, d):
@@ -242,7 +251,14 @@ def _camera_rays(spec, cam, frame: int, k_cam):
     o = cam.eye[:, None].expand(3, N)
     d = ray_directions_morton(spec, cam, frame, k_cam)
     _, inv = morton_pixel_order(spec.width, spec.height)
-    return o, d, torch.as_tensor(inv, dtype=torch.int64, device=d.device)
+    return o, d, _upload_lanes(inv, d.device)
+
+
+def _upload_lanes(inv, device):
+    """The raster -> lane table on `device`: a pageable host-to-device copy,
+    which drains the card's queue."""
+    with metrics.span("sync.upload_lanes"):
+        return torch.as_tensor(inv, dtype=torch.int64, device=device)
 
 
 def _to_raster(radiance, inv_perm):
@@ -331,7 +347,8 @@ def _flush_compact(scene, carry, accum, new_n: int, pay_cap: int):
 def has_nee_materials(scene) -> bool:
     """Does any material take the NEE branch?  Scenes of only glass and
     emitters (the 100k benchmark) get exactly zero from NEE."""
-    mt = scene.mat_type.cpu()
+    with metrics.span("sync.nee_materials"):
+        mt = scene.mat_type.cpu()
     return bool(((mt != C.MAT_GLASS) & (mt != C.MAT_LIGHT)).any())
 
 
@@ -357,7 +374,7 @@ def calibrate_compaction(scene, spec, cam, key=None, probe_size: int = 128,
     carry = _new_carry(o, d)
     frac = []
     for depth in range(max_depth):
-        carry = _bounce(scene, carry, rng.fold_in(k_path, depth), nee, presort=presort)
+        carry = _bounce(scene, carry, k_path, depth, nee, presort=presort)
         frac.append(float(carry["alive"].float().mean()))
         if frac[-1] == 0.0:
             break
@@ -379,11 +396,23 @@ def _while_bounces(scene, carry, key, depth0: int, b1: int, nee: bool = False,
     """Bounces [depth0, b1), stopping early once no lane is alive (one
     host check per bounce)."""
     depth = depth0
-    while depth < b1 and bool(carry["alive"].any()):
-        carry = _bounce(scene, carry, rng.fold_in(key, depth), nee, presort=presort,
-                        corrected=corrected)
+    while depth < b1 and _any_alive(carry):
+        carry = _bounce(scene, carry, key, depth, nee, presort=presort, corrected=corrected)
         depth += 1
     return carry
+
+
+def _any_alive(carry) -> bool:
+    """Is any lane of the carry alive?  A read of a device value: the host
+    waits for the card's queue to drain."""
+    with metrics.span("sync.alive"):
+        return bool(carry["alive"].any())
+
+
+def _overflow_int(total) -> int:
+    """A render call's device overflow count as an int (a host read)."""
+    with metrics.span("sync.overflow"):
+        return int(total)
 
 
 # ---------------------------------------------------------------- renders
@@ -408,42 +437,50 @@ def trace_paths(scene, o, d, key, max_depth: int = MAX_DEPTH, compaction=None,
     def start(carry):
         if camera_origin is None:
             return 0, carry
-        return 1, _bounce(scene, carry, rng.fold_in(key, 0), nee,
-                          shared_origin=camera_origin, corrected=corrected)
+        return 1, _bounce(scene, carry, key, 0, nee, shared_origin=camera_origin,
+                          corrected=corrected)
 
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    with metrics.span("pt.camera"):
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        carry = _new_carry(o, d)
     if not compaction:
-        depth0, carry = start(_new_carry(o, d))
+        depth0, carry = start(carry)
         carry = _while_bounces(scene, carry, key, depth0, max_depth, nee,
                                corrected=corrected)
-        missed = (carry["miss_weight"] != 0.0).any(dim=0)
-        env = _env_radiance(scene, carry["miss_dir"])
-        radiance = carry["radiance"] + torch.where(missed[None], env * carry["miss_weight"], 0.0)
+        with metrics.span("pt.env"):
+            missed = (carry["miss_weight"] != 0.0).any(dim=0)
+            env = _env_radiance(scene, carry["miss_dir"])
+            radiance = carry["radiance"] + torch.where(missed[None], env * carry["miss_weight"],
+                                                       0.0)
         return (radiance, overflow) if return_overflow else radiance
 
     starts = [0] + [s for s, _ in compaction]
     ends = [s for s, _ in compaction] + [max_depth]
     widths = [N] + [_phase_width(N, dv) for _, dv in compaction]
-    carry = _new_carry(o, d)
-    accum_full = _new_accum(N, dev)
+    with metrics.span("pt.camera"):
+        accum_full = _new_accum(N, dev)
     for phase, (b0, b1, width) in enumerate(zip(starts, ends, widths)):
         if b0 >= max_depth:
             break
         if phase == 0:
             depth0, carry = start(carry)
         else:
-            carry, accum_full = _flush(carry, accum_full, identity=(phase == 1), scene=scene)
-            carry, ov = _compact(carry, width)
-            overflow = overflow + ov
+            with metrics.span("pt.flush_compact", width_in=carry["alive"].shape[0],
+                              width_out=width):
+                carry, accum_full = _flush(carry, accum_full, identity=(phase == 1),
+                                           scene=scene)
+                carry, ov = _compact(carry, width)
+                overflow = overflow + ov
             depth0 = b0
         carry = _while_bounces(scene, carry, key, depth0, min(b1, max_depth), nee,
                                presort=phase > 0 and needs_presort(scene),
                                corrected=corrected)
 
-    carry, (radiance_full, acc_miss) = _flush(carry, accum_full, scene=scene)
-    missed = (acc_miss[3:6] != 0.0).any(dim=0)
-    env = _env_radiance(scene, acc_miss[0:3])
-    radiance = radiance_full + torch.where(missed[None], env * acc_miss[3:6], 0.0)
+    with metrics.span("pt.env"):
+        carry, (radiance_full, acc_miss) = _flush(carry, accum_full, scene=scene)
+        missed = (acc_miss[3:6] != 0.0).any(dim=0)
+        env = _env_radiance(scene, acc_miss[0:3])
+        radiance = radiance_full + torch.where(missed[None], env * acc_miss[3:6], 0.0)
     if return_overflow:
         return radiance, overflow
     return radiance
@@ -483,15 +520,17 @@ def render_film_frames(scene, spec: CameraSpec, cam, film, n_frames: int = 4,
     other.  Returns (film', overflow kills as an int)."""
     total = torch.zeros((), dtype=torch.int64, device=film.hdr.device)
     for _ in range(n_frames):
-        k_cam, k_path = rng.split(film.key)
-        o, d, inv = _camera_rays(spec, cam, film.frame, k_cam)
+        with metrics.span("pt.camera"):
+            k_cam, k_path = rng.split(film.key)
+            o, d, inv = _camera_rays(spec, cam, film.frame, k_cam)
         radiance, ov = trace_paths(
             scene, o, d, k_path, compaction=compaction, nee=nee,
             return_overflow=True, camera_origin=o[:, 0], max_depth=max_depth,
         )
-        film = film_mod.accumulate(film, _image(spec, radiance, inv))
-        total = total + ov
-    return film, int(total)
+        with metrics.span("film.accumulate"):
+            film = film_mod.accumulate(film, _image(spec, radiance, inv))
+            total = total + ov
+    return film, _overflow_int(total)
 
 
 def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
@@ -523,23 +562,26 @@ def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     key_f = key0
     for g in range(group):
-        k_cam, k_path = rng.split(key_f)
-        o, d = gen_rays(frame0 + g, k_cam)
-        c = _bounce(scene, _new_carry(o, d), rng.fold_in(k_path, 0), nee,
-                    shared_origin=o[:, 0])
+        with metrics.span("pt.camera"):
+            k_cam, k_path = rng.split(key_f)
+            o, d = gen_rays(frame0 + g, k_cam)
+            c = _new_carry(o, d)
+        c = _bounce(scene, c, k_path, 0, nee, shared_origin=o[:, 0])
         for depth in range(1, min(b_merge, max_depth)):
-            c = _bounce(scene, c, rng.fold_in(k_path, depth), nee)
-        c, accum = _flush(c, _new_accum(N, dev), identity=True)
-        c, ovg = _compact(c, w1)
-        c["pixel"] = c["pixel"] + g * N
-        carries.append(c)
-        accums.append(accum)
-        overflow = overflow + ovg
-        key_f = rng.split(key_f)[0]  # film.accumulate's key chain
+            c = _bounce(scene, c, k_path, depth, nee)
+        with metrics.span("pt.flush_compact", width_in=c["alive"].shape[0], width_out=w1):
+            c, accum = _flush(c, _new_accum(N, dev), identity=True)
+            c, ovg = _compact(c, w1)
+            c["pixel"] = c["pixel"] + g * N
+            carries.append(c)
+            accums.append(accum)
+            overflow = overflow + ovg
+            key_f = rng.split(key_f)[0]  # film.accumulate's key chain
 
-    carry = {k: torch.cat([c[k] for c in carries], dim=-1) for k in carries[0]}
-    accum_full = (torch.cat([a[0] for a in accums], dim=1),
-                  torch.cat([a[1] for a in accums], dim=1))
+    with metrics.span("pt.flush_compact", width_in=group * w1, width_out=group * w1):
+        carry = {k: torch.cat([c[k] for c in carries], dim=-1) for k in carries[0]}
+        accum_full = (torch.cat([a[0] for a in accums], dim=1),
+                      torch.cat([a[1] for a in accums], dim=1))
 
     k_merge = rng.split(key0)[1]  # frame 0's path key
     starts = [s for s, _ in compaction]
@@ -551,25 +593,28 @@ def _render_group(scene, spec, cam, frame0: int, key0, group: int, compaction,
         b1 = min(b1, max_depth)
         if i > 0:
             w = group * _phase_width(N, dv)
-            if pay_divisors is not None:
-                carry, accum_full, ovg = _flush_compact(
-                    scene, carry, accum_full, w,
-                    group * _phase_width(N, pay_divisors[i - 1]))
-            else:
-                carry, accum_full = _flush(carry, accum_full, scene=scene)
-                carry, ovg = _compact(carry, w)
-            overflow = overflow + ovg
+            with metrics.span("pt.flush_compact", width_in=carry["alive"].shape[0],
+                              width_out=w):
+                if pay_divisors is not None:
+                    carry, accum_full, ovg = _flush_compact(
+                        scene, carry, accum_full, w,
+                        group * _phase_width(N, pay_divisors[i - 1]))
+                else:
+                    carry, accum_full = _flush(carry, accum_full, scene=scene)
+                    carry, ovg = _compact(carry, w)
+                overflow = overflow + ovg
         carry = _while_bounces(scene, carry, k_merge, b0, b1, nee, presort=presort)
 
-    carry, (acc_rad, acc_miss) = _flush(carry, accum_full, scene=scene)
-    missed = (acc_miss[3:6] != 0.0).any(dim=0)
-    env = _env_radiance(scene, acc_miss[0:3])
-    radiance = acc_rad + torch.where(missed[None], env * acc_miss[3:6], 0.0)
-    img_sum = radiance.reshape(3, group, N).sum(dim=1)
-    if lane_space:
-        return img_sum, overflow
-    _, inv = morton_pixel_order(spec.width, spec.height)
-    return _image(spec, img_sum, torch.as_tensor(inv, dtype=torch.int64, device=dev)), overflow
+    with metrics.span("pt.env"):
+        carry, (acc_rad, acc_miss) = _flush(carry, accum_full, scene=scene)
+        missed = (acc_miss[3:6] != 0.0).any(dim=0)
+        env = _env_radiance(scene, acc_miss[0:3])
+        radiance = acc_rad + torch.where(missed[None], env * acc_miss[3:6], 0.0)
+        img_sum = radiance.reshape(3, group, N).sum(dim=1)
+        if lane_space:
+            return img_sum, overflow
+        _, inv = morton_pixel_order(spec.width, spec.height)
+        return _image(spec, img_sum, _upload_lanes(inv, dev)), overflow
 
 
 def render_film_frames_merged(scene, spec: CameraSpec, cam, film,
@@ -589,6 +634,7 @@ def render_film_frames_merged(scene, spec: CameraSpec, cam, film,
         img_sum, ov = _render_group(scene, spec, cam, film.frame, film.key, group,
                                     tuple(compaction), nee, max_depth=max_depth,
                                     pay_divisors=pay_divisors)
-        film = film_mod.accumulate_group(film, img_sum, group)
-        total = total + ov
-    return film, int(total)
+        with metrics.span("film.accumulate"):
+            film = film_mod.accumulate_group(film, img_sum, group)
+            total = total + ov
+    return film, _overflow_int(total)

@@ -1,21 +1,154 @@
-"""Render metrics: fps / spp/s / Mrays/s counters and profiler hooks (twin
-of ti_raytrace_tpu/metrics.py).  `RenderMeter` tracks the wall clock of
-each progressive dispatch; `profile_trace` wraps torch.profiler around a
-block (the CUDA activity too when a card is present); `timed` prints a
-block's wall time."""
+"""Render metrics: the fps / spp/s meter, the render path's spans and
+profiler hooks (the meter is the twin of ti_raytrace_tpu/metrics.py).
+`RenderMeter` tracks the wall clock of each progressive dispatch; `span`
+(and the decorator `spanned`) marks one stage of the render path;
+`profile_trace` wraps torch.profiler around a block (the CUDA activity
+too when a card is present); `timed` prints a block's wall time.
 
+Spans.  `with span(name, **attrs):` around a stage records, while a
+torch.profiler session is open or inside `recording()`, one
+`SpanRecord` (id, parent id, call id, name, start and end in ns, attrs)
+into a bounded in-memory buffer (`spans()`, `clear_spans()`), and opens
+a profiler range of the same name, so a host-op profile shows the stage.
+The parent is the innermost open span; the call id is the outermost open
+span's id (the render path's root span is `render.call`, one per call of
+`examples/run.render_batch`).  Times come from `time.time_ns()`, the
+clock of the profiler's events (Unix-epoch ns), so the records lie on
+the device trace's time base.  Otherwise a span costs one flag check and
+makes no torch call.
+"""
+
+import collections
 import contextlib
+import functools
+import itertools
 import os
 import time
+
+import torch
+from torch.autograd import profiler as _profiler
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_DIR = os.path.join(_ROOT, "chiprun_out", "profile")
 
+MAX_SPANS = 1 << 18  # records kept; later spans of a full buffer are dropped
+
+SpanRecord = collections.namedtuple("SpanRecord", "id parent call name t0_ns t1_ns attrs")
+
+_recording = 0     # open recording() blocks
+_open = []         # the recording spans now open, innermost last
+_buffer = []       # closed spans, in the order they closed
+_ids = itertools.count(1)
+
+
+class span:
+    """A stage of the render path: `with span("pt.bounce", depth=3, width=n):`.
+    Records only while a profiler session is open or inside `recording()`
+    (see the module docstring)."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "call", "t0_ns", "_range")
+
+    def __init__(self, name: str, **attrs):
+        self.name = name
+        self.attrs = attrs
+        self.id = None
+
+    def __enter__(self):
+        if not (_profiler._is_profiler_enabled or _recording):
+            return self
+        outer = _open[-1] if _open else None
+        self.id = next(_ids)
+        self.parent = outer.id if outer else None
+        self.call = outer.call if outer else self.id
+        _open.append(self)
+        self.t0_ns = time.time_ns()  # the span holds its profiler range
+        self._range = torch._C._profiler._RecordFunctionFast(self.name)
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.id is None:
+            return False
+        self._range.__exit__(*exc)
+        t1_ns = time.time_ns()
+        _open.pop()
+        if len(_buffer) < MAX_SPANS:
+            _buffer.append(SpanRecord(self.id, self.parent, self.call, self.name, self.t0_ns,
+                                      t1_ns, self.attrs))
+        return False
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+ALLOCATOR_COUNTERS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+
+class call_span(span):
+    """The root span of a render call: records, as attributes `alloc_before`
+    and `alloc_after`, the caching allocator's ALLOCATOR_COUNTERS on the
+    torch.device `device` when it is a card (a retry is a cudaMalloc that
+    failed and was retried after the cache was freed: an allocator stall)."""
+
+    __slots__ = ("device",)
+
+    def __init__(self, name: str, device, **attrs):
+        super().__init__(name, **attrs)
+        self.device = device
+
+    def _counters(self) -> dict:
+        if self.device.type != "cuda":
+            return {}
+        stats = torch.cuda.memory_stats(self.device)
+        return {k: stats.get(k, 0) for k in ALLOCATOR_COUNTERS}
+
+    def __enter__(self):
+        super().__enter__()
+        if self.id is not None:
+            self.attrs["alloc_before"] = self._counters()
+        return self
+
+    def __exit__(self, *exc):
+        if self.id is not None:
+            self.attrs["alloc_after"] = self._counters()
+        return super().__exit__(*exc)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans inside the block, profiler or not (tools' switch)."""
+    global _recording
+    _recording += 1
+    try:
+        yield
+    finally:
+        _recording -= 1
+
+
+def spans() -> list:
+    """The recorded spans (SpanRecord), in the order they closed."""
+    return list(_buffer)
+
+
+def clear_spans():
+    _buffer.clear()
+
+
+def current_span():
+    """The name of the innermost recording span now open, or None."""
+    return _open[-1].name if _open else None
+
 
 class RenderMeter:
-    def __init__(self, pixels_per_frame: int, rays_per_pixel_estimate: float = 1.0):
-        self.pixels = pixels_per_frame
-        self.rpp = rays_per_pixel_estimate
+    def __init__(self):
         self.frames = 0
         self.total_s = 0.0
         self.last_s = 0.0
@@ -36,15 +169,9 @@ class RenderMeter:
     def fps(self) -> float:
         return self.frames / self.total_s if self.total_s > 0 else 0.0
 
-    @property
-    def mrays_per_s(self) -> float:
-        """Primary-ray throughput: camera rays only (30 fps at 512^2 is
-        about 7.9 Mrays/s)."""
-        return self.fps * self.pixels * self.rpp / 1e6
-
     def summary(self) -> str:
         return (
-            f"{self.fps:6.2f} fps  {self.mrays_per_s:7.2f} Mray/s "
+            f"{self.fps:6.2f} fps "
             f"(last {self.last_s * 1e3:6.1f} ms, compile {self._warmup_s or 0:.1f} s)"
         )
 
@@ -53,7 +180,6 @@ class RenderMeter:
             frames=self.frames,
             fps=round(self.fps, 3),
             spp_per_s=round(self.fps, 3),  # 1 spp per progressive frame
-            mrays_per_s=round(self.mrays_per_s, 3),
             avg_frame_ms=round(1e3 * self.total_s / max(self.frames, 1), 3),
             compile_s=round(self._warmup_s or 0.0, 3),
         )
@@ -65,8 +191,6 @@ def profile_trace(logdir: str = PROFILE_DIR):
     when a card is present.  Yields the profiler; on exit its Chrome trace
     is written under `logdir` (default: chiprun_out/profile in the
     checkout)."""
-    import torch
-
     acts = [torch.profiler.ProfilerActivity.CPU]
     cuda = torch.cuda.is_available()
     if cuda:

@@ -51,6 +51,7 @@ import ctypes
 
 import torch
 
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.core import constants as C
 
 TILE = 256       # rays per tile (one CUDA block)
@@ -426,31 +427,34 @@ def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: 
     static one."""
     N = o.shape[1]
     n_pad = -(-N // TILE) * TILE
-    rows = [o, d] if tmax is None else [o, d, tmax[None]]
-    if sort_rays and active is not None:
-        rows[1] = d * active[None]
-    rays = torch.nn.functional.pad(torch.cat(rows), (0, n_pad - N))
     perm = None
     if sort_rays:
-        perm = _coherence_order(scene, o, d, n_pad, active)
-        rays = rays.index_select(1, perm if cap is None else perm[:cap])
-    n_run = rays.shape[1]
-    o_p, d_p = rays[0:3].contiguous(), rays[3:6].contiguous()
-    tmax_p = None if tmax is None else rays[6].contiguous()
-    cb = scene.cluster_bounds
-    tri = scene.cluster_tri
-    nc = cb.shape[1]
-    origin_mt = shared_origin is not None
-    if origin_mt:
-        order = _point_order(cb, nc, shared_origin)
-        tri = _origin_mt_table(tri, shared_origin)
-    elif sort_rays or tile_order:
-        # tile centroids from the padded origin rows (padding zeros only
-        # skew the last partial tile's heuristic order; pruning is exact)
-        cent = o_p.reshape(3, n_run // TILE, TILE).mean(dim=2).T
-        order = _tile_order_from_cent(cent, cb, nc)
-    else:
-        order = _static_order(cb, nc)
+        with metrics.span("trace.order"):
+            perm = _coherence_order(scene, o, d, n_pad, active)
+    with metrics.span("trace.pack"):
+        rows = [o, d] if tmax is None else [o, d, tmax[None]]
+        if sort_rays and active is not None:
+            rows[1] = d * active[None]
+        rays = torch.nn.functional.pad(torch.cat(rows), (0, n_pad - N))
+        if sort_rays:
+            rays = rays.index_select(1, perm if cap is None else perm[:cap])
+        n_run = rays.shape[1]
+        o_p, d_p = rays[0:3].contiguous(), rays[3:6].contiguous()
+        tmax_p = None if tmax is None else rays[6].contiguous()
+        cb = scene.cluster_bounds
+        tri = scene.cluster_tri
+        nc = cb.shape[1]
+        origin_mt = shared_origin is not None
+        if origin_mt:
+            order = _point_order(cb, nc, shared_origin)
+            tri = _origin_mt_table(tri, shared_origin)
+        elif sort_rays or tile_order:
+            # tile centroids from the padded origin rows (padding zeros only
+            # skew the last partial tile's heuristic order; pruning is exact)
+            cent = o_p.reshape(3, n_run // TILE, TILE).mean(dim=2).T
+            order = _tile_order_from_cent(cent, cb, nc)
+        else:
+            order = _static_order(cb, nc)
     return (o_p, d_p, min(N, n_run), cb, order, tri, origin_mt, tmax_p,
             scene.super_bounds), perm
 
@@ -484,53 +488,59 @@ def trace_clustered(scene, o, d, sort_rays: bool = True, want_attr: bool = False
             cap = None  # the capacity covers every lane: a plain sorted trace
     args, perm = kernel_inputs(scene, o, d, sort_rays, shared_origin, tile_order,
                                tmax, active, cap)
-    t, prim, u, v, _ = cluster_trace(*args)
-    if perm is not None:
-        if cap is not None:
-            # lanes beyond capacity unsort as misses with t = 0, so the
-            # sphere tail below cannot bring them back
-            cut = perm.shape[0] - cap
-            t = torch.cat([t, t.new_zeros(cut)])
-            prim = torch.cat([prim, prim.new_full((cut,), -1)])
-            u = torch.cat([u, u.new_zeros(cut)])
-            v = torch.cat([v, v.new_zeros(cut)])
-        # live lanes sort before padding, so lanes [0, N) hold every hit;
-        # gather them back to caller order through the inverse permutation
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-        inv = inv[:N]
-        t, prim, u, v = (x.index_select(0, inv) for x in (t, prim, u, v))
-    t, prim = t[:N], prim[:N]
-    uv = torch.stack([u[:N], v[:N]])
+    with metrics.span("trace.kernel", n_valid=args[2], n_pad=args[0].shape[1],
+                      bounded=tmax is not None):
+        t, prim, u, v, _ = cluster_trace(*args)
+    with metrics.span("trace.unsort"):
+        if perm is not None:
+            if cap is not None:
+                # lanes beyond capacity unsort as misses with t = 0, so the
+                # sphere tail below cannot bring them back
+                cut = perm.shape[0] - cap
+                t = torch.cat([t, t.new_zeros(cut)])
+                prim = torch.cat([prim, prim.new_full((cut,), -1)])
+                u = torch.cat([u, u.new_zeros(cut)])
+                v = torch.cat([v, v.new_zeros(cut)])
+            # live lanes sort before padding, so lanes [0, N) hold every hit;
+            # gather them back to caller order through the inverse permutation
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+            inv = inv[:N]
+            t, prim, u, v = (x.index_select(0, inv) for x in (t, prim, u, v))
+        t, prim = t[:N], prim[:N]
+        uv = torch.stack([u[:N], v[:N]])
 
     # analytic spheres: dense tail over the (few) sphere prims
-    for pid, sid in scene.sphere_prims:
-        centre = scene.shape_pos[sid]
-        radius = scene.shape_param[sid, 0]
-        ocx = centre[0] - o[0]
-        ocy = centre[1] - o[1]
-        ocz = centre[2] - o[2]
-        oc2 = ocx * ocx + ocy * ocy + ocz * ocz
-        dop = d[0] * ocx + d[1] * ocy + d[2] * ocz
-        disc2 = oc2 - dop * dop
-        a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        b = -2.0 * dop
-        cc = oc2 - radius * radius
-        discr = torch.clamp(b * b - 4.0 * a * cc, min=0.0)
-        ts = (-b - torch.sqrt(discr)) / (2.0 * torch.clamp(a, min=1e-12))
-        hit = (disc2 < radius * radius) & (ts > 0.0) & (ts < t)
-        if active is not None:
-            hit = hit & active  # the tail sees the raw rays of parked lanes
-        t = torch.where(hit, ts, t)
-        prim = torch.where(hit, pid, prim)
-        uv = torch.where(hit[None, :], 0.0, uv)
+    if scene.sphere_prims:
+        with metrics.span("trace.spheres"):
+            for pid, sid in scene.sphere_prims:
+                centre = scene.shape_pos[sid]
+                radius = scene.shape_param[sid, 0]
+                ocx = centre[0] - o[0]
+                ocy = centre[1] - o[1]
+                ocz = centre[2] - o[2]
+                oc2 = ocx * ocx + ocy * ocy + ocz * ocz
+                dop = d[0] * ocx + d[1] * ocy + d[2] * ocz
+                disc2 = oc2 - dop * dop
+                a = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+                b = -2.0 * dop
+                cc = oc2 - radius * radius
+                discr = torch.clamp(b * b - 4.0 * a * cc, min=0.0)
+                ts = (-b - torch.sqrt(discr)) / (2.0 * torch.clamp(a, min=1e-12))
+                hit = (disc2 < radius * radius) & (ts > 0.0) & (ts < t)
+                if active is not None:
+                    hit = hit & active  # the tail sees the raw rays of parked lanes
+                t = torch.where(hit, ts, t)
+                prim = torch.where(hit, pid, prim)
+                uv = torch.where(hit[None, :], 0.0, uv)
 
-    if tmax is not None or cap is not None:
-        # the miss contract: lanes cut by their bound carry t == tmax and
-        # capacity-cut lanes t == 0, both with prim == -1
-        t = torch.where(prim < 0, C.INF, t)
-    if not want_attr:
-        return t, prim, uv
-    attr = scene.prim_attr[:, prim.clamp(min=0).long()]
-    attr = torch.where((prim >= 0)[None, :], attr, 0.0)
-    return t, prim, uv, attr
+    with metrics.span("trace.attr"):
+        if tmax is not None or cap is not None:
+            # the miss contract: lanes cut by their bound carry t == tmax and
+            # capacity-cut lanes t == 0, both with prim == -1
+            t = torch.where(prim < 0, C.INF, t)
+        if not want_attr:
+            return t, prim, uv
+        attr = scene.prim_attr[:, prim.clamp(min=0).long()]
+        attr = torch.where((prim >= 0)[None, :], attr, 0.0)
+        return t, prim, uv, attr

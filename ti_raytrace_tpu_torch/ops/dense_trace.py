@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from ti_raytrace_tpu_torch import accel
+from ti_raytrace_tpu_torch import accel, metrics
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.utils.morton import morton3d
 
@@ -361,7 +361,7 @@ def trace_planar(scene, o, d):
     """Closest hit, planar rays (3, N) -> (t, prim); a miss is (INF, -1).
     The CUDA kernel for CUDA tensors (over the scene's `dense_groups`
     table), `_sweep` for CPU tensors."""
-    with torch.profiler.record_function("dense_trace._sweep"):
+    with metrics.span("dense_trace._sweep"):
         if o.device.type == "cuda":
             if scene.n_prims > accel.DENSE_MAX_PRIMS and scene.dense_rows.shape[0] == 0:
                 raise ValueError(f"dense_trace: a scene of {scene.n_prims} prims, above "

@@ -40,7 +40,7 @@ whole groups of 16) after a warm-up, the overflow kills, the peak device
 memory, and from torch.profiler over one more call (one frame of BDPT)
 the device ms/frame and the share of it spent in the sweeps (the dense
 kernel's launches and the kernels of the torch calls inside the
-`dense_trace._sweep` record_function range), with the dense kernel's
+`dense_trace._sweep` span), with the dense kernel's
 launches per frame.  prism_rainbow is also rendered uncapped (the shadow
 cap's effect) and, with `cluster_tracer()`, a switch local to this tool,
 through the cluster tracer.  chip_smoke.py uses the recorders, the
@@ -62,7 +62,7 @@ from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_FP32, SM_COUNT, t
 
 SIZE = 512
 SCENES = ("cornell_box", "single_model", "sky_dome", "spectral_box", "prism_rainbow")
-SWEEP_RANGE = "dense_trace._sweep"  # the record_function range of ops/dense_trace.py
+SWEEP_RANGE = "dense_trace._sweep"  # the span (profiler range) of ops/dense_trace.py
 DENSE_KERNEL_NAME = "dense_sweep_kernel"  # the kernel of csrc/dense_trace.cu
 MT_OPS = 60  # FP32 operations of one ray-triangle test (tools/kernel_wavefronts.py)
 T_RTOL = 1e-5

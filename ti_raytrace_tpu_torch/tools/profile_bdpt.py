@@ -12,9 +12,9 @@ per frame:
   * wall and process CPU time over `--frames` uninstrumented frames, and
     the peak device memory of those frames;
   * top-level torch calls of one frame (attribute reads excluded), in
-    total and by section of bdpt_rgb, counted by a TorchFunctionMode; a
-    call is charged to the innermost section it runs in (a pdf evaluated
-    inside a walk step counts as a pdf);
+    total and by the program's spans (`count_ops`), counted by a
+    TorchFunctionMode; a call is charged to the innermost span open when
+    it runs (a pdf evaluated inside a walk step counts as bdpt.pdf);
   * on CUDA, from torch.profiler over one more frame: the device kernels
     launched, their summed device time and its share of that frame's wall
     time, the cluster_trace and threefry kernels' times and launches, and
@@ -25,7 +25,6 @@ Prints a readable report to stderr and, last on stdout, one JSON line.
 
 import argparse
 import collections
-import functools
 import json
 import sys
 import time
@@ -33,17 +32,9 @@ import time
 import torch
 from torch.overrides import TorchFunctionMode
 
-# section -> the bdpt_rgb globals whose calls it covers
-SECTIONS = {
-    "walk steps": ("_walk_step",),
-    "shadow requests": ("_shadow_requests",),
-    "pdfs": ("disney_evaluate_pdf", "_disney_pdf"),
-    "MIS weights": ("_mis_weight",),
-    "traces": ("trace", "trace_shaded"),
-    "splat": ("_splat_add",),
-    "strategy bodies": ("_connections",),
-}
-OTHER = "other"
+from ti_raytrace_tpu_torch import metrics
+
+OTHER = "other"  # calls outside every span
 
 
 def log(*a):
@@ -51,47 +42,31 @@ def log(*a):
 
 
 class _OpCounter(TorchFunctionMode):
-    """Counts top-level torch calls into the innermost open section."""
+    """Counts top-level torch calls by the innermost recording span open
+    at each call (metrics.current_span), OTHER outside every span."""
 
     def __init__(self):
         super().__init__()
-        self.stack = [OTHER]
         self.counts = collections.Counter()
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if getattr(func, "__name__", "") != "__get__":
-            self.counts[self.stack[-1]] += 1
+            self.counts[metrics.current_span() or OTHER] += 1
         return func(*args, **(kwargs or {}))
 
 
 def count_ops(render):
-    """Runs render() with every SECTIONS function of bdpt_rgb wrapped;
-    returns {section: top-level torch calls}, OTHER included."""
-    from ti_raytrace_tpu_torch.integrators import bdpt_rgb
-
+    """Runs render() with the program's spans recording; returns {span
+    name: top-level torch calls made while it was the innermost open
+    span}, OTHER included.  Works for any render path: BDPT's sections
+    are bdpt.walk, bdpt.shadow_requests, bdpt.pdf, bdpt.mis, trace.*,
+    bdpt.splat and bdpt.connections (the strategy bodies); the path
+    tracer's pt.camera, pt.bounce, pt.shade, pt.nee, pt.flush_compact,
+    pt.env and film.accumulate."""
     counter = _OpCounter()
-
-    def wrap(fn, section):
-        @functools.wraps(fn)
-        def inner(*a, **k):
-            counter.stack.append(section)
-            try:
-                return fn(*a, **k)
-            finally:
-                counter.stack.pop()
-        return inner
-
-    saved = {name: getattr(bdpt_rgb, name) for names in SECTIONS.values() for name in names}
-    try:
-        for section, names in SECTIONS.items():
-            for name in names:
-                setattr(bdpt_rgb, name, wrap(saved[name], section))
-        with counter:
-            render()
-    finally:
-        for name, fn in saved.items():
-            setattr(bdpt_rgb, name, fn)
-    return {s: counter.counts[s] for s in (*SECTIONS, OTHER)}
+    with metrics.recording(), counter:
+        render()
+    return dict(counter.counts.most_common())
 
 
 def device_profile(render, device, top: int = 8) -> dict:
@@ -181,7 +156,7 @@ def main(argv=None):
     out["ops_by_section"] = sections
     log(f"top-level torch calls per frame: {out['ops']}")
     for s, n in sections.items():
-        log(f"  {s:16s} {n:8d}")
+        log(f"  {s:22s} {n:8d}")
 
     if cuda:
         out.update(device_profile(render, device))

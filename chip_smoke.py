@@ -24,8 +24,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), its maximum SM
      clock (the threefry kernel's bound), torch/CUDA;
-  2. kernel build: csrc/cluster_trace.cu, csrc/dense_trace.cu and
-     csrc/rng.cu, one nvcc for each, started together with the dense
+  2. kernel build: csrc/cluster_trace.cu, csrc/dense_trace.cu,
+     csrc/rng.cu and csrc/disney.cu, one nvcc for each, started together with the dense
      kernel's SASS probes (tools/sass.py), timed, with ptxas's registers
      and each dense part's instructions by pipe;
   3. kernel vs cluster_trace_plain on the bench's own wavefronts, recorded
@@ -197,7 +197,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      75 integer operations per element, the 43 shifts and logic ops at
      64 per clock on the ALU pipe, all 75 at 128 issued per clock, on 132
      SMs at the maximum SM clock, against 4 bytes written per element at
-     3.35 TB/s) and the share; any differing bit fails.
+     3.35 TB/s) and the share; any differing bit fails;
+ 27. disney kernel: csrc/disney.cu's two entry points (evaluate_pdf, with
+     true_pdf off and on, and sample) against the plain twins
+     (bsdf/planar.disney_evaluate_pdf_plain, disney_sample_plain) on the
+     card, bit for bit (NaN-aware), on random lanes at DISNEY_WIDTHS; per
+     entry and width the kernel's us per launch (its device time under
+     torch.profiler over DISNEY_REPS wrapper calls), the wrapper's us per
+     call (CUDA events over the same calls), the plain twin's ms, the
+     bound (44 B read and 8 or 12 B written a lane at 3.35 TB/s) and the
+     share; then the launches a frame of each path phase's counted run (its
+     wrapper's counts, which must be > 0 for each entry).
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
@@ -216,7 +226,9 @@ agreement with the oracle per wavefront) and the threefry kernel (launches summe
 over the counted runs of phases 4, 7, 10, 12, 14-16 and 18 and over the
 ranks of phase 24, max_abs_err over phase 26's shapes, ms, plain_ms and
 bound_ms of the (8, 262,144) draw, each shape's row and each path's draws
-per frame); the last line is {"ok": true, "device": {...}}.
+per frame) and the Disney kernels (launches summed over the counted runs,
+each entry's row per width, each path's launches per frame); the last
+line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -261,6 +273,12 @@ RNG_REPS = 100  # timed launches per shape
 # 128 issued in all (kernel_wavefronts.ISSUE_PER_CLOCK)
 ALU_PER_CLOCK = 64
 RNG_RUNS = []  # (path, rng kernel launches, launches per frame by elements drawn)
+# phase 27: the Disney kernels at the main paths' widths (a 512^2 frame's
+# lanes, and half of them: a BDPT slice), timed over DISNEY_REPS calls
+DISNEY_WIDTHS = (131072, 262144)
+DISNEY_REPS = 100
+DISNEY_BYTES = {"eval": (44, 8), "eval_true_pdf": (44, 8), "sample": (44, 12)}  # read, written
+DISNEY_RUNS = []  # (path, frames, Disney kernel launches by entry)
 # a hit against a miss, or against another prim at one t, is an edge case
 # where the ray passes within this barycentric distance of the prim's
 # boundary by the oracle's arithmetic: the kernel's shared-origin form
@@ -302,17 +320,18 @@ def phase_device():
 
 
 def phase_build():
-    """The three kernels built at once, one nvcc per source, beside the
-    dense kernel's SASS probes."""
+    """The four kernel sources built at once, one nvcc per source, beside
+    the dense kernel's SASS probes."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
     from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
     from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.tools import sass
 
     kernels = (("cluster_trace.cu", KERNEL), ("dense_trace.cu", DENSE_KERNEL),
-               ("rng.cu", UNIFORM_KERNEL))
+               ("rng.cu", UNIFORM_KERNEL), ("disney.cu", DISNEY_KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         probes = pool.submit(sass.dense_counts)
@@ -437,9 +456,12 @@ def _attach_launches(rows, per_frame):
 
 
 def _reset_rng():
+    """Zero the threefry and Disney kernels' counts before a counted run."""
+    from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
     from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
 
     UNIFORM_KERNEL.reset_counts()
+    DISNEY_KERNEL.reset_counts()
 
 
 def _rng_counts(tag, path, frames, launches=None, per_width=None):
@@ -451,6 +473,7 @@ def _rng_counts(tag, path, frames, launches=None, per_width=None):
 
     if launches is None:
         launches, per_width = UNIFORM_KERNEL.launches, dict(UNIFORM_KERNEL.launches_by_width)
+        _disney_counts(tag, path, frames)
     per_frame = {w: c / frames for w, c in per_width.items()}
     log(f"{tag} rng kernel: {launches} launches ({launches / frames:g} draws per frame); by "
         f"elements drawn: " + ", ".join(f"{w}: {c:g}" for w, c in sorted(per_frame.items(),
@@ -458,6 +481,21 @@ def _rng_counts(tag, path, frames, launches=None, per_width=None):
     if launches == 0:
         fail(f"the {path} path never launched the threefry kernel")
     RNG_RUNS.append((path, launches, per_frame))
+
+
+def _disney_counts(tag, path, frames):
+    """The Disney kernels' launches in the counted run just made (reset
+    with `_reset_rng`): logs them per frame, fails if an entry never
+    launched, records the run in DISNEY_RUNS."""
+    from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
+
+    launches = dict(DISNEY_KERNEL.launches)
+    log(f"{tag} disney kernel: " + ", ".join(
+        f"{op} {launches.get(op, 0)} launches ({launches.get(op, 0) / frames:g} per frame)"
+        for op in ("eval", "sample")))
+    if not (launches.get("eval") and launches.get("sample")):
+        fail(f"the {path} path did not launch both Disney kernels: {launches}")
+    DISNEY_RUNS.append((path, frames, launches))
 
 
 def phase_main_path(scene, spec, cam, cfg, sync):
@@ -1466,6 +1504,80 @@ def phase_rng(sm_mhz):
     return rows, max_err
 
 
+def phase_disney():
+    """Phase 27: the Disney kernels against their plain twins bit for bit
+    on random lanes at DISNEY_WIDTHS, timed; then each path's launches per
+    frame from DISNEY_RUNS.  Returns the rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ti_raytrace_tpu_torch.bsdf import planar
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_BYTES, time_ms
+
+    tag = "[27 disney kernel]"
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    k = planar.DISNEY_KERNEL
+
+    def unit(n):
+        v = torch.randn(3, n, device=dev, generator=g)
+        return v / v.norm(dim=0, keepdim=True)
+
+    def bits_equal(a, b):
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+        return bool(same.all())
+
+    rows = []
+    for n in DISNEY_WIDTHS:
+        ev = (unit(n), unit(n), unit(n), torch.rand(n, device=dev, generator=g),
+              torch.rand(n, device=dev, generator=g))
+        sa = (torch.rand(3, n, device=dev, generator=g), unit(n), unit(n),
+              torch.rand(n, device=dev, generator=g), torch.rand(n, device=dev, generator=g))
+        cases = (
+            ("eval", lambda: k.evaluate_pdf(*ev), lambda: planar.disney_evaluate_pdf_plain(*ev),
+             "disney_evaluate_pdf_kernel"),
+            ("eval_true_pdf", lambda: k.evaluate_pdf(*ev, True),
+             lambda: planar.disney_evaluate_pdf_plain(*ev, true_pdf=True),
+             "disney_evaluate_pdf_kernel"),
+            ("sample", lambda: k.sample(*sa), lambda: planar.disney_sample_plain(*sa),
+             "disney_sample_kernel"))
+        for op, kernel, plain, name in cases:
+            got, want = kernel(), plain()
+            got, want = (got, want) if op == "sample" else (torch.stack(got), torch.stack(want))
+            equal = bits_equal(got, want)
+            if not equal:
+                fail(f"the Disney {op} kernel differs from its plain twin at {n} lanes")
+            call_ms, _ = time_ms(kernel, DISNEY_REPS)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(DISNEY_REPS):
+                    kernel()
+                torch.cuda.synchronize()
+            evts = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and name in e.key]
+            launches = sum(e.count for e in evts)
+            kernel_us = (sum(e.self_device_time_total for e in evts) / launches
+                         if launches else float("nan"))
+            plain_ms, _ = time_ms(plain, 3)
+            read, written = DISNEY_BYTES[op]
+            bound_us = n * (read + written) / PEAK_BYTES * 1e6
+            row = dict(op=op, lanes=n, bit_equal=equal, kernel_us=kernel_us,
+                       call_us=call_ms * 1e3, plain_ms=plain_ms, bound_us=bound_us,
+                       bound_by="bytes", bytes=n * (read + written),
+                       share=bound_us / kernel_us if launches else None,
+                       profiled_launches=launches)
+            log(f"{tag} {op} at {n} lanes: bit-equal={equal}; kernel {kernel_us:.3f} us a "
+                f"launch ({launches} profiled), {row['call_us']:.3f} us a wrapper call "
+                f"(events over {DISNEY_REPS}), plain {plain_ms:.3f} ms; bound {bound_us:.3f} us "
+                f"by bytes ({read}+{written} B a lane); share {row['share']}")
+            rows.append(row)
+    for path, frames, launches in DISNEY_RUNS:
+        log(f"{tag} {path}: " + ", ".join(f"{op} {c / frames:g}" for op, c in
+                                          sorted(launches.items())) + " launches a frame")
+    return rows
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -1559,6 +1671,7 @@ def main():
     del camera_waves
     rng_rows, rng_err = phase_rng(sm_mhz)
     rng_main = next(r for r in rng_rows if r["shape"] == [8, SIZE * SIZE])
+    disney_rows = phase_disney()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
@@ -1606,6 +1719,16 @@ def main():
         "shapes": rng_rows,
         "paths": [dict(path=p, launches=n, draws_per_frame=sum(w.values()),
                        draws_per_frame_by_elements=w) for p, n, w in RNG_RUNS],
+    }, {
+        "name": "disney",
+        "route": "cuda",
+        "source": "ti_raytrace_tpu_torch/csrc/disney.cu",
+        "replaces": None,  # the JAX package's Disney BSDF is plain XLA
+        "launches": sum(sum(c.values()) for _, _, c in DISNEY_RUNS),
+        "library_ms": None,  # no PyTorch call computes the Disney BSDF
+        "rows": disney_rows,
+        "paths": [dict(path=p, frames=f, launches_per_frame={op: c / f for op, c in n.items()})
+                  for p, f, n in DISNEY_RUNS],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -10,6 +10,7 @@ and an unchanged one is reused.  nvcc's own error text is raised as is.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,11 +49,23 @@ class BuildInfo:
         self.path, self.built, self.seconds, self.log = path, built, seconds, log
 
 
+def _text_with_headers(src: str) -> bytes:
+    """The source's bytes followed by those of each csrc/ header it
+    includes by `#include "name"` (one level), so that an edited header
+    gives its includers a new hash.  A source without such includes hashes
+    as its bytes alone."""
+    with open(src, "rb") as f:
+        text = f.read()
+    for name in re.findall(rb'^\s*#include\s+"([^"]+)"', text, re.M):
+        with open(os.path.join(CSRC, name.decode()), "rb") as f:
+            text += f.read()
+    return text
+
+
 def build(source: str) -> BuildInfo:
     """Compile csrc/<source> unless a library of the same hash exists."""
     src = os.path.join(CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(_text_with_headers(src) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{digest[:16]}.so")
     log_path = out[:-3] + ".log"
     if os.path.exists(out):

@@ -19,7 +19,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from ti_raytrace_tpu_torch import metrics
+from ti_raytrace_tpu_torch import accel, metrics
 from ti_raytrace_tpu_torch.tools import stages
 
 BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benchmark")
@@ -275,5 +275,7 @@ def test_trace_kernel_spans_carry_the_dispatch_widths(cuda, fresh, cell):
         prog.call(prog.new_film(6), n)
     launched = [r.attrs for r in metrics.spans() if r.name == "trace.kernel"
                 and r.attrs["n_pad"] > 0]
-    assert widths and len(launched) == len(widths)
+    # a scene of the dense tracer dispatches no cluster kernel at all
+    dense = prog.scene.n_prims <= accel.DENSE_MAX_PRIMS
+    assert bool(widths) != dense and len(launched) == len(widths)
     assert [(a["n_valid"], a["bounded"]) for a in launched] == widths

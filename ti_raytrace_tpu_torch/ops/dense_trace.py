@@ -361,13 +361,32 @@ def trace_planar(scene, o, d):
     """Closest hit, planar rays (3, N) -> (t, prim); a miss is (INF, -1).
     The CUDA kernel for CUDA tensors (over the scene's `dense_groups`
     table), `_sweep` for CPU tensors."""
-    with metrics.span("dense_trace._sweep"):
+    return _swept(scene, o, d)
+
+
+def _swept(scene, o, d, **attrs):
+    """`trace_planar` inside the span `dense_trace._sweep`.  Where the span
+    records (a profiler open, or `metrics.recording()`), it carries the
+    lanes `n`, the table's `groups` and its sphere rows `tail`, besides
+    `attrs`; on the card also `counts`, the (5,) int32 device tensor into
+    which the launch adds its (warp, group) counts (`DENSE_KERNEL`), left
+    unread here so that the call reads nothing back.  Otherwise the span
+    adds no torch call and the kernel gets no counts."""
+    with metrics.span("dense_trace._sweep") as sp:
+        counts = None
+        if sp.id is not None:
+            groups = scene.dense_boxes.shape[0]
+            sp.attrs.update(n=o.shape[1], groups=groups,
+                            tail=scene.dense_rows.shape[0] - GROUP * groups, **attrs)
+            if o.device.type == "cuda":
+                counts = sp.attrs["counts"] = torch.zeros(5, dtype=torch.int32,
+                                                          device=o.device)
         if o.device.type == "cuda":
             if scene.n_prims > accel.DENSE_MAX_PRIMS and scene.dense_rows.shape[0] == 0:
                 raise ValueError(f"dense_trace: a scene of {scene.n_prims} prims, above "
                                  f"accel.DENSE_MAX_PRIMS, carries no grouped table")
             return DENSE_KERNEL(o.contiguous(), d.contiguous(), scene.dense_boxes,
-                                scene.dense_rows)
+                                scene.dense_rows, counts)
         if o.device.type == "cpu":
             return _sweep(scene, o, d)
         raise NotImplementedError(f"dense_trace: no implementation for {o.device}")
@@ -390,11 +409,13 @@ def trace_planar_capped(scene, o, d, active, cap_frac: float):
     (INF, -1), so a cap needs measured headroom.  Inactive lanes are
     undefined, as `accel.trace` says: those that fit into the prefix
     behind the active ones carry their ray's real hit, the others a miss;
-    callers read only the lanes they marked active."""
+    callers read only the lanes they marked active.  A recording span
+    carries `capped=True` and the width before the cap, `n_uncapped`."""
     N = o.shape[1]
     W = capacity_lanes(N, cap_frac)
     sel = torch.sort((~active).to(torch.int64), stable=True).indices[:W]
-    t_c, prim_c = trace_planar(scene, o.index_select(1, sel), d.index_select(1, sel))
+    t_c, prim_c = _swept(scene, o.index_select(1, sel), d.index_select(1, sel), capped=True,
+                         n_uncapped=N)
     t = torch.full((N,), C.INF, dtype=torch.float32, device=o.device)
     prim = torch.full((N,), -1, dtype=torch.int32, device=o.device)
     t[sel] = t_c

@@ -25,8 +25,9 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), its maximum SM
      clock (the threefry kernel's bound), torch/CUDA;
   2. kernel build: csrc/cluster_trace.cu, csrc/dense_trace.cu,
-     csrc/rng.cu and csrc/disney.cu, one nvcc for each, started together with the dense
-     kernel's SASS probes (tools/sass.py), timed, with ptxas's registers
+     csrc/rng.cu, csrc/disney.cu and csrc/pt_shade.cu, one nvcc for each,
+     started together with the dense kernel's SASS probes (tools/sass.py),
+     timed, with ptxas's registers
      and each dense part's instructions by pipe;
   3. kernel vs cluster_trace_plain on the bench's own wavefronts, recorded
      at the tracer during one merged group of the main path (16 frames):
@@ -207,7 +208,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      call (CUDA events over the same calls), the plain twin's ms, the
      bound (44 B read and 8 or 12 B written a lane at 3.35 TB/s) and the
      share; then the launches a frame of each path phase's counted run (its
-     wrapper's counts, which must be > 0 for each entry).
+     wrapper's counts: a pt_rgb path launches the shading kernel and no
+     Disney kernel, every other path both Disney entries);
+ 28. pt shade kernel: csrc/pt_shade.cu (integrators/pt_rgb._shade on the
+     card) against the plain twin _shade_plain bit for bit (NaN-aware) on
+     random lanes at SHADE_WIDTHS, its one launch without NEE ("full") and
+     its head and tail under NEE (the light sample and shadow prims given);
+     per entry and width the kernel's us per launch (device time under
+     torch.profiler over SHADE_REPS calls), the wrapper's us per call (CUDA
+     events), the plain twin's ms, the bound (SHADE_BYTES a lane at 3.35
+     TB/s) and the share; the wrapper's host us a call at SHADE_HOST_LANES
+     lanes; then each pt_rgb path's launches a frame.
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
@@ -226,8 +237,9 @@ agreement with the oracle per wavefront) and the threefry kernel (launches summe
 over the counted runs of phases 4, 7, 10, 12, 14-16 and 18 and over the
 ranks of phase 24, max_abs_err over phase 26's shapes, ms, plain_ms and
 bound_ms of the (8, 262,144) draw, each shape's row and each path's draws
-per frame) and the Disney kernels (launches summed over the counted runs,
-each entry's row per width, each path's launches per frame); the last
+per frame) and the Disney kernels and the PT shading kernel (launches
+summed over the counted runs, each entry's row per width, each path's
+launches per frame); the last
 line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -279,6 +291,15 @@ DISNEY_WIDTHS = (131072, 262144)
 DISNEY_REPS = 100
 DISNEY_BYTES = {"eval": (44, 8), "eval_true_pdf": (44, 8), "sample": (44, 12)}  # read, written
 DISNEY_RUNS = []  # (path, frames, Disney kernel launches by entry)
+# phase 28: the shading kernel at the PT paths' widths (a 512^2 frame's
+# lanes, and a merged group's 1,048,576), timed over SHADE_REPS calls; the
+# wrapper's host cost at SHADE_HOST_LANES, where the launch is no wait
+SHADE_WIDTHS = (262144, 1048576)
+SHADE_REPS = 50
+SHADE_HOST_LANES = 1024
+# bytes a lane (read, written): csrc/pt_shade.cu's header
+SHADE_BYTES = {"full": (198, 78), "head": (37, 13), "tail": (250, 78)}
+SHADE_RUNS = []  # (path, frames, shading kernel launches by entry)
 # a hit against a miss, or against another prim at one t, is an edge case
 # where the ray passes within this barycentric distance of the prim's
 # boundary by the oracle's arithmetic: the kernel's shared-origin form
@@ -326,12 +347,14 @@ def phase_build():
 
     from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
     from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
+    from ti_raytrace_tpu_torch.integrators.pt_rgb import SHADE_KERNEL
     from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
     from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.tools import sass
 
     kernels = (("cluster_trace.cu", KERNEL), ("dense_trace.cu", DENSE_KERNEL),
-               ("rng.cu", UNIFORM_KERNEL), ("disney.cu", DISNEY_KERNEL))
+               ("rng.cu", UNIFORM_KERNEL), ("disney.cu", DISNEY_KERNEL),
+               ("pt_shade.cu", SHADE_KERNEL))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         probes = pool.submit(sass.dense_counts)
@@ -456,12 +479,15 @@ def _attach_launches(rows, per_frame):
 
 
 def _reset_rng():
-    """Zero the threefry and Disney kernels' counts before a counted run."""
+    """Zero the threefry, Disney and shading kernels' counts before a
+    counted run."""
     from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
     from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
+    from ti_raytrace_tpu_torch.integrators.pt_rgb import SHADE_KERNEL
 
     UNIFORM_KERNEL.reset_counts()
     DISNEY_KERNEL.reset_counts()
+    SHADE_KERNEL.reset_counts()
 
 
 def _rng_counts(tag, path, frames, launches=None, per_width=None):
@@ -484,18 +510,30 @@ def _rng_counts(tag, path, frames, launches=None, per_width=None):
 
 
 def _disney_counts(tag, path, frames):
-    """The Disney kernels' launches in the counted run just made (reset
-    with `_reset_rng`): logs them per frame, fails if an entry never
-    launched, records the run in DISNEY_RUNS."""
+    """The Disney and shading kernels' launches in the counted run just
+    made (reset with `_reset_rng`): logs them per frame and records the run
+    in DISNEY_RUNS and SHADE_RUNS.  A pt_rgb path shades through
+    csrc/pt_shade.cu and makes no Disney dispatch; the others dispatch the
+    Disney BSDF.  Fails if a path launched neither the shading kernel nor
+    both Disney kernels, or both."""
     from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
+    from ti_raytrace_tpu_torch.integrators.pt_rgb import SHADE_KERNEL
 
     launches = dict(DISNEY_KERNEL.launches)
+    shade = dict(SHADE_KERNEL.launches)
     log(f"{tag} disney kernel: " + ", ".join(
         f"{op} {launches.get(op, 0)} launches ({launches.get(op, 0) / frames:g} per frame)"
-        for op in ("eval", "sample")))
-    if not (launches.get("eval") and launches.get("sample")):
-        fail(f"the {path} path did not launch both Disney kernels: {launches}")
-    DISNEY_RUNS.append((path, frames, launches))
+        for op in ("eval", "sample")) + "; pt shade kernel: " + ", ".join(
+        f"{op} {shade.get(op, 0)} launches ({shade.get(op, 0) / frames:g} per frame)"
+        for op in ("full", "head", "tail")))
+    disney = bool(launches.get("eval") and launches.get("sample"))
+    if disney == bool(shade):
+        fail(f"the {path} path launched {launches} Disney and {shade} shading kernels: one "
+             "of the two, not both")
+    if disney:
+        DISNEY_RUNS.append((path, frames, launches))
+    else:
+        SHADE_RUNS.append((path, frames, shade))
 
 
 def phase_main_path(scene, spec, cam, cfg, sync):
@@ -1578,6 +1616,157 @@ def phase_disney():
     return rows
 
 
+def _shade_lanes(n, gen):
+    """Random lanes of one shading call on the card: (carry, u, t, prim,
+    uv_bary, attr, light sample, shadow prims): glass, Disney and emitter
+    hits of triangles and spheres, misses, dead lanes."""
+    import torch
+
+    from ti_raytrace_tpu_torch.scene.packs import PRIM_A
+
+    dev = torch.device("cuda")
+
+    def rand(*shape):
+        return torch.rand(*shape, device=dev, generator=gen)
+
+    def unit(k):
+        v = torch.randn(3, k, device=dev, generator=gen)
+        return v / v.norm(dim=0, keepdim=True)
+
+    miss = rand(n) < 0.15
+    t = torch.where(miss, 1.0e6, rand(n) * 8.0 + 0.01)
+    prim = torch.where(miss, -1, torch.randint(0, 1000, (n,), device=dev, generator=gen))
+    prim = prim.to(torch.int32)
+    attr = torch.zeros(PRIM_A, n, device=dev)
+    g = unit(n)
+    attr[0:3] = g
+    for r in (3, 6, 9):
+        attr[r:r + 3] = g + 0.3 * unit(n)
+    attr[18] = torch.randint(0, 3, (n,), device=dev, generator=gen).float()
+    attr[19:22] = rand(3, n)
+    attr[22] = torch.where(attr[18] == 1, 1.05 + rand(n), rand(n))
+    attr[23] = rand(n) * 4.0
+    attr[24] = rand(n)
+    attr[25] = (rand(n) < 0.3).float()
+    attr[26:29] = torch.randn(3, n, device=dev, generator=gen)
+    attr[:, miss] = 0.0
+    carry = dict(origin=torch.randn(3, n, device=dev, generator=gen), direction=unit(n),
+                 throughput=rand(3, n), radiance=rand(3, n) * 0.1, alive=rand(n) < 0.8,
+                 brdf_pdf=rand(n) * 2.0, perfect_spec=rand(n) < 0.4, miss_dir=unit(n),
+                 miss_weight=rand(3, n), pixel=torch.arange(n, device=dev))
+    ls = dict(pos=torch.randn(3, n, device=dev, generator=gen), normal=unit(n),
+              direction=unit(n), emission=rand(3, n) * 20.0, dist=rand(n) * 5.0 + 0.05,
+              choice_pdf=rand(n) + 0.01)
+    sh_prim = torch.where(rand(n) < 0.7, prim, prim + 1)
+    return (carry, rand(8, n), t, prim, rand(2, n) * 0.5, attr, ls, sh_prim)
+
+
+def phase_shade():
+    """Phase 28: the PT shading kernel (both routes of pt_rgb._shade)
+    against its plain twin bit for bit on random lanes at SHADE_WIDTHS,
+    without NEE (one launch) and with it (head and tail, the light sample
+    and shadow prims given), timed; the wrapper's host cost a call; then
+    each PT path's launches a frame from SHADE_RUNS.  Returns the rows."""
+    from types import SimpleNamespace
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ti_raytrace_tpu_torch.integrators import pt_rgb
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_BYTES, time_ms
+
+    tag = "[28 pt shade kernel]"
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    k = pt_rgb.SHADE_KERNEL
+    scene = SimpleNamespace(n_lights=3)
+    carry_keys = ("origin", "direction", "throughput", "radiance", "alive", "brdf_pdf",
+                  "perfect_spec", "miss_dir", "miss_weight", "pixel")
+
+    def bits_equal(a, b):
+        if a.dtype != torch.float32:
+            return torch.equal(a, b)
+        return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+    def plain(lanes, nee):
+        carry, u, t, prim, uv, attr, ls, sh_prim = lanes
+        saved = pt_rgb.sample_li, pt_rgb.trace
+        pt_rgb.sample_li = lambda sc, pos, u3: ls
+        pt_rgb.trace = lambda sc, o, d, sort_small=False: (None, sh_prim)
+        try:
+            return pt_rgb._shade_plain(scene, carry, u, t, prim, uv, attr, nee)
+        finally:
+            pt_rgb.sample_li, pt_rgb.trace = saved
+
+    def kernel_us(fn, name="pt_shade_kernel"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SHADE_REPS):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        launches = sum(e.count for e in evts)
+        return (sum(e.self_device_time_total for e in evts) / launches
+                if launches else float("nan")), launches
+
+    rows = []
+    for n in SHADE_WIDTHS:
+        lanes = _shade_lanes(n, gen)
+        carry, u, t, prim, uv, attr, ls, sh_prim = lanes
+        head = lambda: k.head(carry, t, prim, attr)  # noqa: E731
+        cases = (
+            ("full", lambda: k.shade(carry, u, t, prim, uv, attr), False),
+            ("head", head, True),
+            ("tail", lambda: k.shade(carry, u, t, prim, uv, attr, nee=(ls, sh_prim, 3)), True))
+        for op, fn, nee in cases:
+            if op == "head":
+                pos, is_disney = fn()
+                hit_pos = carry["origin"] + carry["direction"] * t[None]
+                equal = bits_equal(pos, hit_pos)
+            else:
+                got, want = fn(), plain(lanes, nee)
+                equal = all(bits_equal(got[key], want[key]) for key in carry_keys)
+            if not equal:
+                fail(f"the pt shade kernel's {op} entry differs from its plain twin at {n} lanes")
+            us, launches = kernel_us(fn)
+            call_ms, _ = time_ms(fn, SHADE_REPS)
+            plain_ms = time_ms(lambda: plain(lanes, nee), 3)[0] if op != "head" else None
+            read, written = SHADE_BYTES[op]
+            bound_us = n * (read + written) / PEAK_BYTES * 1e6
+            row = dict(op=op, lanes=n, bit_equal=equal, kernel_us=us, call_us=call_ms * 1e3,
+                       plain_ms=plain_ms, bound_us=bound_us, bound_by="bytes",
+                       bytes=n * (read + written), share=bound_us / us if launches else None,
+                       profiled_launches=launches)
+            log(f"{tag} {op} at {n} lanes: bit-equal={equal}; kernel {us:.3f} us a launch "
+                f"({launches} profiled), {row['call_us']:.3f} us a wrapper call (events over "
+                f"{SHADE_REPS}), plain {plain_ms} ms; bound {bound_us:.3f} us by bytes "
+                f"({read}+{written} B a lane); share {row['share']}")
+            rows.append(row)
+        del lanes, carry, u, t, prim, uv, attr, ls, sh_prim
+    lanes = _shade_lanes(SHADE_HOST_LANES, gen)
+    carry, u, t, prim, uv, attr, ls, sh_prim = lanes
+    for op, fn in (("full", lambda: pt_rgb._shade(scene, carry, u, t, prim, uv, attr)),
+                   ("head+tail", lambda: (k.head(carry, t, prim, attr),
+                                          k.shade(carry, u, t, prim, uv, attr,
+                                                  nee=(ls, sh_prim, 3))))):
+        fn()
+        torch.cuda.synchronize()
+        reps = 2000
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        log(f"{tag} host cost of {op} at {SHADE_HOST_LANES} lanes: {host_us:.2f} us a call "
+            f"(host clock over {reps} calls, no sync between)")
+        rows.append(dict(op=f"host {op}", lanes=SHADE_HOST_LANES, host_us=host_us))
+    for path, frames, launches in SHADE_RUNS:
+        log(f"{tag} {path}: " + ", ".join(f"{op} {c / frames:g}" for op, c in
+                                          sorted(launches.items())) + " launches a frame")
+    return rows
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -1672,6 +1861,7 @@ def main():
     rng_rows, rng_err = phase_rng(sm_mhz)
     rng_main = next(r for r in rng_rows if r["shape"] == [8, SIZE * SIZE])
     disney_rows = phase_disney()
+    shade_rows = phase_shade()
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
@@ -1729,6 +1919,16 @@ def main():
         "rows": disney_rows,
         "paths": [dict(path=p, frames=f, launches_per_frame={op: c / f for op, c in n.items()})
                   for p, f, n in DISNEY_RUNS],
+    }, {
+        "name": "pt_shade",
+        "route": "cuda",
+        "source": "ti_raytrace_tpu_torch/csrc/pt_shade.cu",
+        "replaces": None,  # the JAX package's PT shading is plain XLA
+        "launches": sum(sum(c.values()) for _, _, c in SHADE_RUNS),
+        "library_ms": None,  # no PyTorch call shades a path tracer's hits
+        "rows": shade_rows,
+        "paths": [dict(path=p, frames=f, launches_per_frame={op: c / f for op, c in n.items()})
+                  for p, f, n in SHADE_RUNS],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

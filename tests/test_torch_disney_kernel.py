@@ -504,13 +504,19 @@ def test_cell_path_bit_equal_to_the_plain_route(cuda, fresh, monkeypatch, cell):
     """One call of each cell's path at a small size (merged PT, one-frame
     PT, PT+NEE exact, BDPT sliced) gives the film of the same call with
     the dispatcher forced to the plain route, bit for bit; the kernels
-    launched in the first and only there."""
+    launched in the first and only there.  The PT cells shade through
+    csrc/pt_shade.cu, which makes no Disney dispatch: there the Disney
+    kernels never launch and the shading kernel does."""
     prog, wl, _ = _program(cell, 16 if cell == "bench_100k.batch" else 32, "cuda")
     n = wl["frames_per_call"] if cell != "veach.pt_nee" else 2
+    pt_rgb.SHADE_KERNEL.reset_counts()
     got = prog.call(prog.new_film(11), n)[0].hdr
     torch.cuda.synchronize()
     launches = dict(planar.DISNEY_KERNEL.launches)
-    assert launches.get("eval", 0) > 0 and launches.get("sample", 0) > 0
+    if wl["integrator"] == "pt_rgb":
+        assert not launches and pt_rgb.SHADE_KERNEL.launches
+    else:
+        assert launches.get("eval", 0) > 0 and launches.get("sample", 0) > 0
     kernel = planar.DISNEY_KERNEL
     monkeypatch.setattr(planar, "DISNEY_KERNEL", SimpleNamespace(  # the plain route on the card
         evaluate_pdf=planar.disney_evaluate_pdf_plain, sample=planar.disney_sample_plain))

@@ -13,8 +13,10 @@
 //     op (so `1.0 / PI` is folded in double first, and `0.04` is
 //     (float)0.04, not the literal 0.04f); `a op scalar` and `scalar op a`
 //     round once, as the commuted float op does;
-//   * `x / PI` with a Python float is `x * (1.0f / (float)PI)` (ATen's
-//     div_true with a CPU scalar multiplies by the reciprocal);
+//   * `x / PI` with a Python float is `x * (float)(1.0 / PI)` (ATen's
+//     div_true with a CPU scalar multiplies by the scalar's reciprocal,
+//     taken in double and cast to float; for PI that is 1.0f / (float)PI,
+//     for 1.055 it is not);
 //   * `1.0 / t` is `reciprocal(t) * 1.0`, i.e. 1.0f / t;
 //   * torch.rsqrt is rsqrtf (not 1.0f / sqrtf); torch.sqrt, sin and cos
 //     are sqrtf, sinf and cosf;
@@ -35,7 +37,7 @@ struct f3 {
 constexpr double PI_D = 3.141592653589793;  // core/constants.PI
 constexpr float PI_F = (float)PI_D;
 constexpr float TWO_PI_F = (float)(2.0 * PI_D);  // core/constants.TWO_PI
-constexpr float INV_PI_F = (float)(1.0 / PI_D);  // `1.0 / PI` folded in double
+constexpr float INV_PI_F = (float)(1.0 / PI_D);  // `1.0 / PI` folded in double; `/ PI`
 
 // torch.clamp(x, min=lo)
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -119,7 +121,7 @@ __device__ __forceinline__ void evaluate_pdf(f3 n, f3 v, f3 l, float metallic, f
 
     const float diffuse_ratio = 0.5f * (1.0f - metallic);
     const float pdf_spec = ds * n_dot_h / (clamp_min(fabsf(l_dot_h), (float)1e-8) * 4.0f);
-    const float pdf_diff = true_pdf ? n_dot_l * (1.0f / PI_F) : INV_PI_F;
+    const float pdf_diff = true_pdf ? n_dot_l * INV_PI_F : INV_PI_F;
     const float pdf = diffuse_ratio * pdf_diff + (1.0f - diffuse_ratio) * pdf_spec;
     brdf_out = valid ? brdf : 0.0f;
     pdf_out = valid ? pdf : -1.0f;

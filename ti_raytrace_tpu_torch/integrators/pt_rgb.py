@@ -21,6 +21,11 @@ trace with a per-tile order.  With `nee=True` every Disney hit traces one
 shadow ray toward a sampled emitter point (sorted mode too) and weighs it
 against BSDF sampling with the power heuristic.
 
+Shading (`_shade`, from a bounce's hit record to the new carry) is one
+launch of the hand kernel csrc/pt_shade.cu a bounce on the card, two under
+NEE around sample_li and the shadow trace; CPU tensors take its plain twin
+`_shade_plain`, which the kernel equals bit for bit.
+
 Differences from the reference, by design: the carry's pixel ids are an
 int64 tensor (not bitcast into the float carry); `_while_bounces` checks
 for live lanes on the host once per bounce (one device sync per bounce);
@@ -34,6 +39,10 @@ ported: the reference's measured-loss switches (PRESORT_CARRY,
 PRESORT_HALF, TRACE0_COMPACT, NEE_FROM_EMITTER_PARITY).
 """
 
+import array
+import collections
+import ctypes
+
 import torch
 
 from ti_raytrace_tpu_torch import film as film_mod
@@ -46,6 +55,7 @@ from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.ops import planar as pv
 from ti_raytrace_tpu_torch.ops.shading import decode_hit
+from ti_raytrace_tpu_torch.scene.packs import PRIM_A
 from ti_raytrace_tpu_torch.scene.sample_planar import sample_li
 from ti_raytrace_tpu_torch.texture.texture import texture2d_packed
 from ti_raytrace_tpu_torch.utils.colorsp import srgb_to_lrgb
@@ -119,14 +129,213 @@ def _bounce(scene, carry, key, depth: int, nee: bool = False, presort: bool = Fa
         return _shade(scene, carry, u, t, prim, uv_bary, attr, nee, corrected)
 
 
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+
+# csrc/pt_shade.cu's input slots in its order: (name, rows, dtype); rows
+# None for a (N,) input, else (rows, N)
+_SLOTS = (
+    ("origin", 3, _F32), ("direction", 3, _F32), ("t", None, _F32), ("prim", None, _I32),
+    ("uv_bary", 2, _F32), ("attr", PRIM_A, _F32), ("u", 8, _F32), ("throughput", 3, _F32),
+    ("radiance", 3, _F32), ("alive", None, _BOOL), ("brdf_pdf", None, _F32),
+    ("perfect_spec", None, _BOOL), ("miss_dir", 3, _F32), ("miss_weight", 3, _F32),
+    ("light direction", 3, _F32), ("light normal", 3, _F32), ("light emission", 3, _F32),
+    ("light dist", None, _F32), ("light choice_pdf", None, _F32), ("shadow prim", None, _I32),
+)
+_FULL, _HEAD, _TAIL = 0, 1, 2  # the kernel's modes
+
+
+class _ShadeKernel:
+    """ctypes binding of csrc/pt_shade.cu.  `launches` counts kernel
+    launches by entry ("full", "head", "tail"); the wrapper adds to it per
+    launch and nowhere else, and `reset_counts` zeroes it."""
+
+    def __init__(self):
+        self.launches = collections.Counter()
+        self.build_info = None
+        self._lib = None
+
+    def reset_counts(self):
+        self.launches.clear()
+
+    def library(self):
+        if self._lib is None:
+            from ti_raytrace_tpu_torch.ops import cuda_build
+
+            lib, self.build_info = cuda_build.load("pt_shade.cu")
+            p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.pt_shade_launch.argtypes = [p, i, i, n, p, p, n, p]
+            lib.pt_shade_launch.restype = i
+            lib.pt_math_launch.argtypes = [i, ctypes.c_float, p, p, n, p]
+            lib.pt_math_launch.restype = i
+            lib.pt_shade_error_string.argtypes = [i]
+            lib.pt_shade_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    @staticmethod
+    def check(op, tensors):
+        """Raise ValueError unless each input given (None: a slot the entry
+        does not read) is a tensor of its slot's shape, (rows, N) or (N,)
+        with N the lanes of `t`, and dtype, all on one CUDA device.  Returns
+        (device, N).  Reads attributes only: no torch call."""
+        t = tensors[2]
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"pt shade {op}: t must be a tensor, got {type(t).__name__}")
+        if len(t.shape) != 1:
+            raise ValueError(f"pt shade {op}: t must be (N,), got {tuple(t.shape)}")
+        device, n = t.device, t.shape[0]
+        for (name, rows, dtype), x in zip(_SLOTS, tensors):
+            if x is None:
+                continue
+            if not isinstance(x, torch.Tensor):
+                raise ValueError(f"pt shade {op}: {name} must be a tensor, got "
+                                 f"{type(x).__name__}")
+            want = (n,) if rows is None else (rows, n)
+            if x.shape != want:
+                raise ValueError(f"pt shade {op}: {name} must be {want}, got {tuple(x.shape)}")
+            if x.dtype is not dtype:
+                raise ValueError(f"pt shade {op}: {name} must be {dtype}, got {x.dtype}")
+            if x.device != device:
+                raise ValueError(f"pt shade {op}: the inputs lie on {device} and {x.device}")
+        if device.type != "cuda":
+            raise ValueError(f"pt shade {op}: the kernel runs on a CUDA device, got {device}")
+        return device, n
+
+    def _run(self, op, mode, tensors, shape, flag_rows, corrected=False, n_lights=0):
+        """One launch of `mode` over `tensors` (in _SLOTS order, read by their
+        strides) into a new contiguous float32 block of `shape` + (N,) and a
+        (flag_rows, N) bool block; zero lanes launch nothing."""
+        device, n = self.check(op, tensors)
+        out = torch.empty((*shape, n), dtype=_F32, device=device)
+        flags = torch.empty((flag_rows, n), dtype=_BOOL, device=device)
+        if n:
+            lib = self.library()
+            words = array.array("q")  # the kernel's words, read during the call
+            for (_, r, _), x in zip(_SLOTS, tensors):
+                if x is None:
+                    words.extend((0, 0, 0))
+                elif r is None:
+                    words.extend((x.data_ptr(), 0, *x.stride()))
+                else:
+                    words.extend((x.data_ptr(), *x.stride()))
+            args = (words.buffer_info()[0], mode, int(bool(corrected)), int(n_lights),
+                    out.data_ptr(), flags.data_ptr(), n)
+            if device.index == torch.cuda.current_device():
+                err = lib.pt_shade_launch(*args, torch._C._cuda_getCurrentRawStream(device.index))
+            else:
+                with torch.cuda.device(device):
+                    err = lib.pt_shade_launch(*args,
+                                              torch._C._cuda_getCurrentRawStream(device.index))
+            if err != 0:
+                raise RuntimeError(f"pt shade {op} kernel launch failed: "
+                                   + lib.pt_shade_error_string(err).decode())
+            self.launches[op] += 1
+        return out, flags
+
+    @staticmethod
+    def _carry_in(carry, u, t, prim, uv_bary, attr):
+        return (carry["origin"], carry["direction"], t, prim, uv_bary, attr, u,
+                carry["throughput"], carry["radiance"], carry["alive"], carry["brdf_pdf"],
+                carry["perfect_spec"], carry["miss_dir"], carry["miss_weight"])
+
+    def shade(self, carry, u, t, prim, uv_bary, attr, corrected: bool = False, nee=None):
+        """_shade_plain's new carry by one launch: without `nee` the whole
+        step (nee=False); with nee = (light sample dict of sample_li, the
+        shadow rays' prims, scene.n_lights) the tail of the NEE step.  The
+        float rows are views of one new (7, 3, N) block (brdf_pdf: row 0 of
+        the last), the flags of one (2, N) block; `pixel` passes through."""
+        ins = self._carry_in(carry, u, t, prim, uv_bary, attr)
+        if nee is None:
+            op, mode, n_lights = "full", _FULL, 0
+            ins += (None,) * 6
+        else:
+            ls, sh_prim, n_lights = nee
+            op, mode = "tail", _TAIL
+            ins += (ls["direction"], ls["normal"], ls["emission"], ls["dist"],
+                    ls["choice_pdf"], sh_prim)
+        out, flags = self._run(op, mode, ins, (7, 3), 2, corrected, n_lights)
+        origin, direction, throughput, radiance, miss_dir, miss_weight, brdf_pdf = out.unbind(0)
+        alive, perfect_spec = flags.unbind(0)
+        return dict(origin=origin, direction=direction, throughput=throughput,
+                    radiance=radiance, alive=alive, brdf_pdf=brdf_pdf[0],
+                    perfect_spec=perfect_spec, miss_dir=miss_dir, miss_weight=miss_weight,
+                    pixel=carry["pixel"])
+
+    def head(self, carry, t, prim, attr):
+        """The NEE step's head by one launch: (pos (3, N), is_disney (1, N)),
+        the hit positions of decode_hit and the lanes with a Disney hit."""
+        ins = (carry["origin"], carry["direction"], t, prim, None, attr, None, None, None,
+               carry["alive"]) + (None,) * 10
+        return self._run("head", _HEAD, ins, (3,), 1)
+
+    def math(self, x, exponent=None):
+        """The probe: the kernel's pow_f(x, exponent), or exp_f(x) without an
+        exponent, of a contiguous float32 CUDA tensor, one launch (the
+        exponent is cast to float as ATen casts a Python one)."""
+        if x.dtype != _F32 or x.device.type != "cuda" or not x.is_contiguous():
+            raise ValueError("pt shade math: a contiguous float32 CUDA tensor")
+        out = torch.empty_like(x)
+        if x.numel():
+            lib = self.library()
+            with torch.cuda.device(x.device):
+                err = lib.pt_math_launch(int(exponent is not None), exponent or 0.0,
+                                         x.data_ptr(), out.data_ptr(), x.numel(),
+                                         torch._C._cuda_getCurrentRawStream(x.device.index))
+            if err != 0:
+                raise RuntimeError("pt shade math launch failed: "
+                                   + lib.pt_shade_error_string(err).decode())
+        return out
+
+
+SHADE_KERNEL = _ShadeKernel()
+
+
 def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
            corrected: bool = False):
-    """The post-trace half of _bounce: emitter hits (MIS-weighted under
-    NEE), NEE shadow rays, glass and Disney sampling, Beer-Lambert
-    roulette and the carry update, from a hit record and per-lane
-    uniforms u (8, N): rows 0:3 NEE, 3:6 BSDF, 6 roulette.  corrected:
-    the Disney pdfs are the sampler's true densities."""
-    with metrics.span("pt.shade"):
+    """The post-trace half of _bounce (see _shade_plain): the kernel
+    (SHADE_KERNEL, csrc/pt_shade.cu) when the hit record lies on a CUDA
+    device, the plain twin otherwise.  On the kernel route nee=False is
+    one launch; nee=True a head launch, sample_li and the shadow trace in
+    torch as in the twin, then a tail launch.  Each launch is a `pt.shade`
+    span (route kernel, width)."""
+    if t.device.type != "cuda":
+        return _shade_plain(scene, carry, u, t, prim, uv_bary, attr, nee, corrected)
+    width = t.shape[0]
+    if not nee:
+        with metrics.span("pt.shade", route="kernel", width=width):
+            return SHADE_KERNEL.shade(carry, u, t, prim, uv_bary, attr, corrected)
+    with metrics.span("pt.shade", route="kernel", width=width):
+        pos, is_disney = SHADE_KERNEL.head(carry, t, prim, attr)
+    with metrics.span("pt.nee"):
+        ls = sample_li(scene, pos, u[0:3])
+        sh_o = _shadow_origins(ls, is_disney)
+    _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
+    with metrics.span("pt.shade", route="kernel", width=width):
+        return SHADE_KERNEL.shade(carry, u, t, prim, uv_bary, attr, corrected,
+                                  nee=(ls, sh_prim, scene.n_lights))
+
+
+def _shadow_origins(ls, is_disney):
+    """NEE's shadow-ray origins (3, N) from sample_li's result `ls`: the ray
+    starts just off the sampled emitter point and must hit this lane's own
+    prim first (the reference's unbiased default; its on-emitter variant is
+    a measured-loss switch).  Lanes without a Disney hit (is_disney (1, N)
+    false) are parked far outside the scene: their tiles fail every cluster
+    slab test."""
+    return torch.where(is_disney, pv.offset_ray(ls["pos"], ls["normal"]),
+                       torch.full_like(ls["pos"], 1e9))
+
+
+def _shade_plain(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
+                 corrected: bool = False):
+    """The post-trace half of _bounce in tensor ops: emitter hits
+    (MIS-weighted under NEE), NEE shadow rays, glass and Disney sampling,
+    Beer-Lambert roulette and the carry update, from a hit record and
+    per-lane uniforms u (8, N): rows 0:3 NEE, 3:6 BSDF, 6 roulette.
+    corrected: the Disney pdfs are the sampler's true densities.  The
+    plain twin of csrc/pt_shade.cu (`_shade` routes CPU tensors here)."""
+    width = t.shape[0]
+    with metrics.span("pt.shade", route="plain", width=width):
         o = carry["origin"]
         d = carry["direction"]
         alive = carry["alive"]
@@ -172,13 +381,7 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
             ndl_surf = pv.dot(fnormal, ls["direction"])
             ndl_light = pv.dot(ls["normal"], ls["direction"])
             nee_geo_ok = is_disney & (ndl_surf < 0.0) & (ndl_light > 0.0)
-            # the shadow ray starts just off the sampled emitter point and
-            # must hit this lane's own prim first (the reference's unbiased
-            # default; its on-emitter variant is a measured-loss switch).
-            # Lanes without a Disney hit are parked far outside the scene:
-            # their tiles fail every cluster slab test
-            sh_o = pv.where(is_disney, pv.offset_ray(ls["pos"], ls["normal"]),
-                            torch.full_like(ls["pos"], 1e9))
+            sh_o = _shadow_origins(ls, is_disney[None])
         _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
         with metrics.span("pt.nee"):
             unoccluded = sh_prim == prim
@@ -192,7 +395,7 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
             radiance = radiance + torch.where(
                 nee_ok[None], nee_w[None] * ls["emission"] * throughput * reflect_color, 0.0)
 
-    with metrics.span("pt.shade"):
+    with metrics.span("pt.shade", route="plain", width=width):
         d_dir = disney_sample(u_bsdf, d, fnormal, hit.mat_p0, hit.mat_p1)
         d_brdf, d_pdf = disney_evaluate_pdf(fnormal, -d, d_dir, hit.mat_p0, hit.mat_p1,
                                             true_pdf=corrected)

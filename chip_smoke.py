@@ -12,14 +12,21 @@ the four path-traced scenes of the dense tracer (single_model,
 cornell_box, sky_dome, spectral_box) and the prism dispersion scene under
 spectral BDPT (`bdpt_spec.make_render_frame`, unsliced, the prism_rainbow
 golden path), and the five sharded paths of `parallel/shard.py` on 2
-ranks sharing the card — and holds the three CUDA kernels against their
+ranks sharing the card — and holds the five CUDA kernels against their
 plain PyTorch versions: the cluster kernel (csrc/cluster_trace.cu) in
 every mode the paths use, the dense sweep's kernel (csrc/dense_trace.cu)
 on the dense paths' wavefronts, bit for bit, and the threefry kernel
 (csrc/rng.cu, every draw of every path) bit for bit on every shape the
-paths draw; and the dense tracer against the cluster tracer.  Every path
-phase also counts the threefry kernel's launches in its counted run (they
-must be > 0) and prints its draws per frame by elements drawn.
+paths draw, the Disney and PT shading kernels (csrc/disney.cu,
+csrc/pt_shade.cu) bit for bit on random lanes; and the dense tracer
+against the cluster tracer.  Every path phase also counts the threefry
+kernel's launches in its counted run (they must be > 0) and prints its
+draws per frame by elements drawn.  A counted run records the program's
+spans (metrics.recording), the only record of launches (each launch is
+counted on its span where it launches), and counts each kernel's
+launches from them (metrics.kernel_launches); its timed ms include the
+spans' own host cost and, on a dense path, the dense kernel's counting
+variant (a recording `dense_trace._sweep` span passes it `counts`).
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. device: the card's name and power limit (nvidia-smi), its maximum SM
@@ -42,7 +49,7 @@ Phases, each printing its own lines; any failure exits non-zero:
   4. main path: a warm-up dispatch, then timed dispatches of KF=16
      frames in merged groups of 16 with the bench schedule; zero overflow
      kills, a finite non-negative HDR and kernel launches > 0, and the
-     kernel's launches per frame by live width (its wrapper's counts);
+     kernel's launches per frame by live width (from the spans);
   5. the same 32^2 render on CUDA and on the CPU (plain version) from one
      seed, compared pixel by pixel;
   6. the Veach scene on CUDA: kernel vs plain on two sorted-mode
@@ -67,8 +74,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      tracer, then DENSE_GROUPS timed groups; zero overflow kills, a finite
      non-negative HDR with mean > 0, ms/frame, no launch of the cluster
      kernel (the dispatch took the dense tracer) and launches of the dense
-     kernel (its launches per frame by width, from its wrapper's counts,
-     reset just before the timed run);
+     kernel (its launches per frame by width, from the timed run's
+     spans);
  13. dense vs cluster on the recorded camera wavefront (262,144 lanes) and
      merged bounce-1 wavefront (1,048,576 lanes): first the dense kernel
      against the plain sweep `dense_trace._sweep` on the same CUDA tensors,
@@ -207,8 +214,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      torch.profiler over DISNEY_REPS wrapper calls), the wrapper's us per
      call (CUDA events over the same calls), the plain twin's ms, the
      bound (44 B read and 8 or 12 B written a lane at 3.35 TB/s) and the
-     share; then the launches a frame of each path phase's counted run (its
-     wrapper's counts: a pt_rgb path launches the shading kernel and no
+     share; then the launches a frame of each path phase's counted run (from
+     the spans: a pt_rgb path launches the shading kernel and no
      Disney kernel, every other path both Disney entries);
  28. pt shade kernel: csrc/pt_shade.cu (integrators/pt_rgb._shade on the
      card) against the plain twin _shade_plain bit for bit (NaN-aware) on
@@ -245,6 +252,7 @@ Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -341,7 +349,7 @@ def phase_device():
 
 
 def phase_build():
-    """The four kernel sources built at once, one nvcc per source, beside
+    """The five kernel sources built at once, one nvcc per source, beside
     the dense kernel's SASS probes."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -352,19 +360,17 @@ def phase_build():
     from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.tools import sass
 
-    kernels = (("cluster_trace.cu", KERNEL), ("dense_trace.cu", DENSE_KERNEL),
-               ("rng.cu", UNIFORM_KERNEL), ("disney.cu", DISNEY_KERNEL),
-               ("pt_shade.cu", SHADE_KERNEL))
+    kernels = (KERNEL, DENSE_KERNEL, UNIFORM_KERNEL, DISNEY_KERNEL, SHADE_KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         probes = pool.submit(sass.dense_counts)
-        list(pool.map(lambda k: k[1].library(), kernels))
+        list(pool.map(lambda k: k.library(), kernels))
         parts = probes.result()
     log(f"[2 build] {len(kernels)} kernels and the probes in {time.perf_counter() - t0:.2f} s")
     for part, counts in parts.items():
         log(f"[2 build] dense_trace.cu SASS, {part}: {counts}")
-    for source, k in kernels:
-        info = k.build_info
+    for k in kernels:
+        source, info = k.SOURCE, k.build_info
         log(f"[2 build] {source}: nvcc {info.seconds:.2f} s, built={info.built} -> {info.path}")
         for line in info.log.splitlines():
             if "registers" in line or "spill" in line:
@@ -464,7 +470,7 @@ def phase_kernel(scene, spec, cam, cfg):
 
 def _log_widths(tag, per_width, frames, kernel="kernel"):
     """Logs and returns the counted run's kernel launches per frame by
-    live width (the wrapper's `launches_by_width`)."""
+    live width (`_counted`'s)."""
     per_frame = {w: c / frames for w, c in per_width.items()}
     log(f"{tag} {kernel} launches per frame by live width: " + ", ".join(
         f"{w}: {c:g}" for w, c in sorted(per_frame.items(), reverse=True)))
@@ -478,28 +484,37 @@ def _attach_launches(rows, per_frame):
         row["launches_per_frame"] = per_frame.get(row["lanes"], 0.0)
 
 
-def _reset_rng():
-    """Zero the threefry, Disney and shading kernels' counts before a
-    counted run."""
-    from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
-    from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
-    from ti_raytrace_tpu_torch.integrators.pt_rgb import SHADE_KERNEL
+@contextlib.contextmanager
+def _counted():
+    """A counted run: the block records its spans (metrics.recording, a few
+    us of host time a span; the dense sweep runs its counting variant), and
+    the dict it yields then holds each hand kernel's launches in the block,
+    read from those spans
+    (metrics.kernel_launches): "cluster" by live width, "dense" and "rng" by
+    lanes, "disney" by op, "shade" by entry."""
+    from ti_raytrace_tpu_torch import metrics
 
-    UNIFORM_KERNEL.reset_counts()
-    DISNEY_KERNEL.reset_counts()
-    SHADE_KERNEL.reset_counts()
+    metrics.clear_spans()
+    counts = {}
+    with metrics.recording():
+        yield counts
+    for key, name, by in (("cluster", "trace.kernel", "n_valid"),
+                          ("dense", "dense_trace._sweep", "n"), ("rng", "rng.uniform", "n"),
+                          ("disney", "bsdf.disney", "op"), ("shade", "pt.shade", "entry")):
+        counts[key] = metrics.kernel_launches(name, by)
+    metrics.clear_spans()
 
 
-def _rng_counts(tag, path, frames, launches=None, per_width=None):
-    """The threefry kernel's launches in the counted run just made (its
-    wrapper's counts, reset with `_reset_rng` just before; or the given
-    counts of a phase 24 rank): logs its draws per frame by elements drawn,
-    fails if it never launched, records the run in RNG_RUNS."""
-    from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
-
-    if launches is None:
-        launches, per_width = UNIFORM_KERNEL.launches, dict(UNIFORM_KERNEL.launches_by_width)
-        _disney_counts(tag, path, frames)
+def _rng_counts(tag, path, frames, counts):
+    """The threefry kernel's launches by elements drawn, counts["rng"], in a
+    counted run (`_counted`'s, whose Disney and shading launches
+    `_disney_counts` logs first; or a phase 24 rank's): logs its draws per
+    frame by elements drawn, fails if it never launched, records the run in
+    RNG_RUNS."""
+    if "disney" in counts:
+        _disney_counts(tag, path, frames, counts)
+    per_width = counts["rng"]
+    launches = sum(per_width.values())
     per_frame = {w: c / frames for w, c in per_width.items()}
     log(f"{tag} rng kernel: {launches} launches ({launches / frames:g} draws per frame); by "
         f"elements drawn: " + ", ".join(f"{w}: {c:g}" for w, c in sorted(per_frame.items(),
@@ -509,18 +524,15 @@ def _rng_counts(tag, path, frames, launches=None, per_width=None):
     RNG_RUNS.append((path, launches, per_frame))
 
 
-def _disney_counts(tag, path, frames):
-    """The Disney and shading kernels' launches in the counted run just
-    made (reset with `_reset_rng`): logs them per frame and records the run
-    in DISNEY_RUNS and SHADE_RUNS.  A pt_rgb path shades through
+def _disney_counts(tag, path, frames, counts):
+    """The Disney and shading kernels' launches in a counted run
+    (`_counted`'s): logs them per frame and records the run in DISNEY_RUNS
+    and SHADE_RUNS.  A pt_rgb path shades through
     csrc/pt_shade.cu and makes no Disney dispatch; the others dispatch the
     Disney BSDF.  Fails if a path launched neither the shading kernel nor
     both Disney kernels, or both."""
-    from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
-    from ti_raytrace_tpu_torch.integrators.pt_rgb import SHADE_KERNEL
-
-    launches = dict(DISNEY_KERNEL.launches)
-    shade = dict(SHADE_KERNEL.launches)
+    launches = dict(counts["disney"])
+    shade = dict(counts["shade"])
     log(f"{tag} disney kernel: " + ", ".join(
         f"{op} {launches.get(op, 0)} launches ({launches.get(op, 0) / frames:g} per frame)"
         for op in ("eval", "sample")) + "; pt shade kernel: " + ", ".join(
@@ -541,7 +553,6 @@ def phase_main_path(scene, spec, cam, cfg, sync):
 
     from ti_raytrace_tpu_torch import film as film_mod
     from ti_raytrace_tpu_torch.integrators import pt_rgb
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
 
     def dispatch(fl):
         return pt_rgb.render_film_frames_merged(
@@ -556,16 +567,16 @@ def phase_main_path(scene, spec, cam, cfg, sync):
     log(f"[4 main] warm-up dispatch: {KF} frames in {time.perf_counter() - t0:.2f} s, "
         f"overflow kills {kills}")
 
-    KERNEL.reset_counts()  # count only the timed main-path run below
-    _reset_rng()
     times = []
-    for _ in range(TIMED_DISPATCHES):
-        t0 = time.perf_counter()
-        fl, ov = dispatch(fl)
-        sync()
-        times.append(time.perf_counter() - t0)
-        kills += ov
-    launches, per_width = KERNEL.launches, dict(KERNEL.launches_by_width)
+    with _counted() as counts:  # count only the timed main-path run below
+        for _ in range(TIMED_DISPATCHES):
+            t0 = time.perf_counter()
+            fl, ov = dispatch(fl)
+            sync()
+            times.append(time.perf_counter() - t0)
+            kills += ov
+    per_width = counts["cluster"]
+    launches = sum(per_width.values())
     hdr = fl.hdr
     ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
               and bool((hdr >= 0).all()) and float(hdr.mean()) > 0.0)
@@ -576,7 +587,7 @@ def phase_main_path(scene, spec, cam, cfg, sync):
         f"{launches} ({launches / (TIMED_DISPATCHES * KF):g} per frame); frames {fl.frame}; "
         f"hdr mean {float(hdr.mean()):.5f}")
     per_frame = _log_widths("[4 main]", per_width, TIMED_DISPATCHES * KF)
-    _rng_counts("[4 main]", "bench", TIMED_DISPATCHES * KF)
+    _rng_counts("[4 main]", "bench", TIMED_DISPATCHES * KF, counts)
     if kills != 0:
         fail(f"{kills} compaction overflow kills on the main path")
     if not ok_img:
@@ -635,20 +646,19 @@ def phase_veach_path(scene, spec, cam, cfg, sync):
 
     from ti_raytrace_tpu_torch import film as film_mod
     from ti_raytrace_tpu_torch.integrators import pt_rgb
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
 
     nee = pt_rgb.has_nee_materials(scene)
     if not nee:
         fail("the Veach scene has no material that takes NEE")
     fl = film_mod.new_film(SIZE, SIZE, seed=0, device=scene.device)
-    KERNEL.reset_counts()  # count only this path's run
-    _reset_rng()
     t0 = time.perf_counter()
-    fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=VEACH_FRAMES,
-                                          compaction=cfg.compaction, nee=nee)
-    sync()
+    with _counted() as counts:  # count only this path's run
+        fl, kills = pt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=VEACH_FRAMES,
+                                              compaction=cfg.compaction, nee=nee)
+        sync()
     seconds = time.perf_counter() - t0
-    launches, per_width = KERNEL.launches, dict(KERNEL.launches_by_width)
+    per_width = counts["cluster"]
+    launches = sum(per_width.values())
     hdr = fl.hdr
     ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
               and bool((hdr >= 0).all()) and float(hdr.mean()) > 0.0)
@@ -657,7 +667,7 @@ def phase_veach_path(scene, spec, cam, cfg, sync):
         f"ms/frame; overflow kills {kills}; kernel launches {launches} "
         f"({launches / VEACH_FRAMES:g} per frame); hdr mean {float(hdr.mean()):.5f}")
     per_frame = _log_widths("[7 veach]", per_width, VEACH_FRAMES)
-    _rng_counts("[7 veach]", "veach_pt", VEACH_FRAMES)
+    _rng_counts("[7 veach]", "veach_pt", VEACH_FRAMES, counts)
     if kills != 0:
         fail(f"{kills} overflow kills on the veach_pt path")
     if not ok_img:
@@ -698,7 +708,6 @@ def phase_bdpt_path(scene, spec, cam, cfg, sync):
     from ti_raytrace_tpu_torch import film as film_mod
     from ti_raytrace_tpu_torch.core import rng
     from ti_raytrace_tpu_torch.integrators import bdpt_rgb
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
 
     def frames(fl, n):
         return bdpt_rgb.render_film_frames(scene, spec, cam, fl, n_frames=n, n_slices=2,
@@ -710,13 +719,13 @@ def phase_bdpt_path(scene, spec, cam, cfg, sync):
     fl, overflow = frames(fl, 1)  # warm-up
     sync()
     log(f"[10 bdpt] warm-up frame {time.perf_counter() - t0:.2f} s, overflow {overflow}")
-    KERNEL.reset_counts()  # count only the timed run below
-    _reset_rng()
     t0 = time.perf_counter()
-    fl, ov = frames(fl, BDPT_FRAMES)
-    sync()
+    with _counted() as counts:  # count only the timed run below
+        fl, ov = frames(fl, BDPT_FRAMES)
+        sync()
     seconds = time.perf_counter() - t0
-    launches, per_width = KERNEL.launches, dict(KERNEL.launches_by_width)
+    per_width = counts["cluster"]
+    launches = sum(per_width.values())
     overflow += ov
     hdr = fl.hdr
     ok_img = (tuple(hdr.shape) == (SIZE, SIZE, 3) and bool(torch.isfinite(hdr).all())
@@ -726,7 +735,7 @@ def phase_bdpt_path(scene, spec, cam, cfg, sync):
         f"ms/frame; walk overflow {overflow}; kernel launches {launches} "
         f"({launches / BDPT_FRAMES:g} per frame); hdr mean {float(hdr.mean()):.5f}")
     per_frame = _log_widths("[10 bdpt]", per_width, BDPT_FRAMES)
-    _rng_counts("[10 bdpt]", "veach_bdpt", BDPT_FRAMES)
+    _rng_counts("[10 bdpt]", "veach_bdpt", BDPT_FRAMES, counts)
     key = rng.PRNGKey(7)
     a = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
     b = bdpt_rgb.render_frame_sliced(scene, spec, cam, 3, key, 2)
@@ -768,17 +777,14 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
     kernel launches, their launches per frame by width)."""
     import torch
 
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
-    from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.tools.dense_sweep import render_frames
 
-    KERNEL.reset_counts()
-    DENSE_KERNEL.reset_counts()
-    _reset_rng()
     t0 = time.perf_counter()
-    fl, kills = render_frames(scene, cfg, spec, cam, fl, frames, sdata)
-    sync()
+    with _counted() as counts:
+        fl, kills = render_frames(scene, cfg, spec, cam, fl, frames, sdata)
+        sync()
     seconds = time.perf_counter() - t0
+    cluster, dense = sum(counts["cluster"].values()), sum(counts["dense"].values())
     kills += warm_kills
     hdr = fl.hdr
     # XYZ -> sRGB leaves out-of-gamut spectral colours negative in a channel
@@ -788,21 +794,21 @@ def _dense_path(tag, name, scene, cfg, spec, cam, fl, frames, sync, warm_kills, 
     log(f"{tag} {name} {SIZE}^2, {cfg.integrator}, {scene.n_prims} prims, schedule "
         f"{cfg.compaction}, group {cfg.group}: {frames} frames in {seconds:.2f} s = "
         f"{seconds / frames * 1e3:.3f} ms/frame; overflow kills {kills}; cluster kernel "
-        f"launches {KERNEL.launches}; dense kernel launches {DENSE_KERNEL.launches} "
-        f"({DENSE_KERNEL.launches / frames:g} per frame); frames {fl.frame}; hdr mean "
+        f"launches {cluster}; dense kernel launches {dense} "
+        f"({dense / frames:g} per frame); frames {fl.frame}; hdr mean "
         f"{float(hdr.mean()):.5f}")
-    per_frame = _log_widths(tag, DENSE_KERNEL.launches_by_width, frames, "dense kernel")
-    _rng_counts(tag, name, frames)
+    per_frame = _log_widths(tag, counts["dense"], frames, "dense kernel")
+    _rng_counts(tag, name, frames, counts)
     if kills != 0:
         fail(f"{kills} compaction overflow kills on the {name} path")
     if not ok_img:
         fail(f"the {name} HDR is not a finite (W, H, 3) image with mean > 0"
              + ("" if signed else ", or has a negative value"))
-    if KERNEL.launches != 0:
+    if cluster != 0:
         fail(f"{name} ({scene.n_prims} prims) reached the cluster kernel")
-    if DENSE_KERNEL.launches == 0:
+    if dense == 0:
         fail(f"{name} ({scene.n_prims} prims) never launched the dense kernel")
-    return DENSE_KERNEL.launches, per_frame
+    return dense, per_frame
 
 
 def _dense_rows(tag, scene, waves, reps, per_frame, sm_mhz, tmax=()):
@@ -1360,9 +1366,9 @@ def phase_sharded(sync):
             f"{r['rng_launches']}; image mean {float(r['img'].mean()):.5f}")
         if r["backend"] != "gloo":
             fail(f"{SHARD_RANKS} ranks on one card ran {r['backend']}, not gloo")
-        for rank, (n, widths) in enumerate(zip(r["rng_launches"], r["rng_launches_by_width"])):
-            _rng_counts(f"{tag} {section} rank {rank}:", f"sharded {section}", r["frames"], n,
-                        widths)
+        for rank, widths in enumerate(r["rng_launches_per_width"]):
+            _rng_counts(f"{tag} {section} rank {rank}:", f"sharded {section}", r["frames"],
+                        {"rng": widths})
     merged = res["merged"]
     if merged["overflow"] != 0:
         fail(f"{merged['overflow']} overflow kills on the sharded merged path")
@@ -1410,7 +1416,7 @@ def phase_sharded(sync):
         fail("the rank's camera slice did not reach the kernel in the shared-origin mode")
     err, row = _compare(f"rank 0 camera slice of {SHARD_RANKS} (shared origin, origin-MT)",
                         calls[0], tag)
-    row["launches_per_frame"] = sum(w.get(n, 0) for w in merged["launches_by_width"]) / KF
+    row["launches_per_frame"] = sum(w.get(n, 0) for w in merged["launches_per_width"]) / KF
     del scene, calls
     torch.cuda.empty_cache()
 
@@ -1501,8 +1507,6 @@ def phase_rng(sm_mhz):
 
     tag = "[26 rng kernel]"
     dev = torch.device("cuda")
-    lib = rng.UNIFORM_KERNEL.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     key = rng.fold_in(rng.split(rng.PRNGKey(12))[1], 3)
     k1, k2 = key.tolist()
     listed = {math.prod(s) for s in RNG_SHAPES}
@@ -1520,10 +1524,10 @@ def phase_rng(sm_mhz):
         if shape not in RNG_SHAPES:
             continue
         out = torch.empty(n, dtype=torch.float32, device=dev)
-        ms, status = time_ms(lambda: lib.threefry_uniform_launch(out.data_ptr(), k1, k2, n,
-                                                                 stream), RNG_REPS)
-        if status != 0 or not torch.equal(out.view(shape), got):
-            fail(f"the raw threefry launch on {shape} failed ({status}) or differs")
+        ms, _ = time_ms(lambda: rng.UNIFORM_KERNEL.launch(
+            "threefry_uniform_launch", out.device, out.data_ptr(), k1, k2, n), RNG_REPS)
+        if not torch.equal(out.view(shape), got):
+            fail(f"the raw threefry launch on {shape} differs")
         ms_call, _ = time_ms(lambda: rng.uniform(key, shape, dev), RNG_REPS)
         ms_plain, _ = time_ms(lambda: rng.uniform_plain(key, shape, dev), 3)
         ms_rand, _ = time_ms(lambda: torch.rand(shape, device=dev), RNG_REPS)

@@ -173,14 +173,12 @@ def test_coherence_key_matches_reference(scenes):
 
 
 def test_cpu_dispatch_uses_plain_version(scenes):
-    """A CPU wavefront takes cluster_trace_plain: the kernel's launch count
-    does not move, and the dispatcher's result is the plain version's."""
+    """A CPU wavefront takes cluster_trace_plain and finds its hits (that the
+    CPU route loads no library is a case of tests/test_torch_launcher.py)."""
     _, ts, host = scenes
     o, d = _incoherent_rays(host, 300, 5)
-    before = tct.KERNEL.launches
     t, prim, _ = tct.trace_clustered(ts, torch.from_numpy(o), torch.from_numpy(d),
                                      sort_rays=False, tile_order=True)
-    assert tct.KERNEL.launches == before
     assert (prim >= 0).sum() > 50 and (t[prim < 0] == C.INF).all()
 
 

@@ -69,7 +69,6 @@ def cuda():
 @pytest.fixture
 def fresh():
     metrics.clear_spans()
-    planar.DISNEY_KERNEL.reset_counts()
     yield
     metrics.clear_spans()
 
@@ -167,15 +166,15 @@ def _bits_equal(a, b):
 @pytest.mark.parametrize("true_pdf", [False, True])
 @pytest.mark.parametrize("n", [1, 31, 700])
 def test_cpu_evaluate_takes_the_plain_twin(fresh, n, true_pdf):
-    """CPU tensors go to the plain twin: no build, no launch, and the
-    pre-change function's bits."""
+    """CPU tensors go to the plain twin: the pre-change function's bits
+    (that the CPU route loads no library is a case of
+    tests/test_torch_launcher.py)."""
     args = _tensors(eval_inputs(n, seed=n))
     got = planar.disney_evaluate_pdf(*args, true_pdf=true_pdf)
     want = frozen.disney_evaluate_pdf(*args, true_pdf=true_pdf)
     twin = planar.disney_evaluate_pdf_plain(*args, true_pdf=true_pdf)
     for g, w, t in zip(got, want, twin):
         assert g.device.type == "cpu" and _bits_equal(g, w) and _bits_equal(t, w)
-    assert not planar.DISNEY_KERNEL.launches and planar.DISNEY_KERNEL._lib is None
 
 
 @pytest.mark.parametrize("n", [1, 31, 700])
@@ -185,7 +184,6 @@ def test_cpu_sample_takes_the_plain_twin(fresh, n):
     assert got.device.type == "cpu" and got.shape == (3, n)
     assert _bits_equal(got, frozen.disney_sample(*args))
     assert _bits_equal(planar.disney_sample_plain(*args), got)
-    assert not planar.DISNEY_KERNEL.launches and planar.DISNEY_KERNEL._lib is None
 
 
 def test_plain_twins_torch_calls():
@@ -223,10 +221,11 @@ def test_dispatch_is_a_span(fresh, op):
 
 
 @pytest.mark.parametrize("op", ["eval", "sample"])
-def test_wrapper_checks_raise(fresh, op):
+def test_wrapper_checks_raise(fresh, monkeypatch, op):
     """A wrong dtype, shape or device mix, a non-tensor or a non-CUDA
     device raises ValueError before any build or launch."""
     k = planar.DISNEY_KERNEL
+    monkeypatch.setattr(k, "launch", lambda *a: pytest.fail("launched"))
     call = k.evaluate_pdf if op == "eval" else k.sample
     good = _tensors(eval_inputs(16) if op == "eval" else sample_inputs(16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -261,7 +260,6 @@ def test_wrapper_checks_raise(fresh, op):
     meta = [t.to("meta") for t in good]
     with pytest.raises(ValueError, match="CUDA"):
         call(*meta)
-    assert not k.launches and k._lib is None
 
 
 def test_build_hash_covers_the_header():
@@ -418,21 +416,23 @@ def _eval_both(args, true_pdf):
 @pytest.mark.parametrize("n", [1, 31, 131072, 262145])
 def test_kernel_evaluate_bit_equal(cuda, fresh, n, true_pdf):
     args = _tensors(eval_inputs(n, seed=n), "cuda")
-    (brdf, pdf), (want_brdf, want_pdf) = _eval_both(args, true_pdf)
+    with metrics.recording():
+        (brdf, pdf), (want_brdf, want_pdf) = _eval_both(args, true_pdf)
     assert brdf.shape == pdf.shape == (n,) and brdf.is_contiguous() and pdf.is_contiguous()
     assert _bits_equal(brdf, want_brdf) and _bits_equal(pdf, want_pdf)
-    assert planar.DISNEY_KERNEL.launches == {"eval": 1}
+    assert metrics.kernel_launches("bsdf.disney", "op") == {"eval": 1}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 31, 131072, 262145])
 def test_kernel_sample_bit_equal(cuda, fresh, n):
     args = _tensors(sample_inputs(n, seed=n), "cuda")
-    got = planar.disney_sample(*args)
+    with metrics.recording():
+        got = planar.disney_sample(*args)
     torch.cuda.synchronize()
     assert got.shape == (3, n) and got.is_contiguous()
     assert _bits_equal(got, planar.disney_sample_plain(*args))
-    assert planar.DISNEY_KERNEL.launches == {"sample": 1}
+    assert metrics.kernel_launches("bsdf.disney", "op") == {"sample": 1}
 
 
 @pytest.mark.gpu
@@ -449,13 +449,13 @@ def test_kernel_edge_lanes_bit_equal(cuda, fresh):
 
 
 @pytest.mark.gpu
-def test_zero_lanes_launch_nothing(cuda, fresh):
+def test_zero_lanes_launch_nothing(cuda, fresh, monkeypatch):
+    monkeypatch.setattr(planar.DISNEY_KERNEL, "launch", lambda *a: pytest.fail("launched"))
     e = _tensors(eval_inputs(0), "cuda")
     brdf, pdf = planar.disney_evaluate_pdf(*e)
     assert brdf.shape == pdf.shape == (0,) and brdf.device.type == "cuda"
     d = planar.disney_sample(*_tensors(sample_inputs(0), "cuda"))
     assert d.shape == (3, 0) and d.device.type == "cuda"
-    assert not planar.DISNEY_KERNEL.launches
 
 
 @pytest.mark.gpu
@@ -472,14 +472,15 @@ def test_kernel_takes_strided_and_expanded_inputs(cuda, fresh, n):
     m = torch.tensor(0.25, device=dev).expand(n)                   # stride 0
     r = torch.rand(2 * n, device=dev, generator=g)[1::2]
     ev = (n1, rows.T, wide, m, r)
-    for true_pdf in (False, True):
-        (brdf, pdf), (wb, wp) = _eval_both(ev, true_pdf)
-        assert _bits_equal(brdf, wb) and _bits_equal(pdf, wp)
-    sa = (u8[3:6], rows.T, n1, r, m)
-    assert _bits_equal(planar.disney_sample(*sa), planar.disney_sample_plain(*sa))
-    sa = (u8[::3], wide, rows.T, m, r)  # rows 0, 3, 6
-    assert _bits_equal(planar.disney_sample(*sa), planar.disney_sample_plain(*sa))
-    assert planar.DISNEY_KERNEL.launches == {"eval": 2, "sample": 2}
+    with metrics.recording():
+        for true_pdf in (False, True):
+            (brdf, pdf), (wb, wp) = _eval_both(ev, true_pdf)
+            assert _bits_equal(brdf, wb) and _bits_equal(pdf, wp)
+        sa = (u8[3:6], rows.T, n1, r, m)
+        assert _bits_equal(planar.disney_sample(*sa), planar.disney_sample_plain(*sa))
+        sa = (u8[::3], wide, rows.T, m, r)  # rows 0, 3, 6
+        assert _bits_equal(planar.disney_sample(*sa), planar.disney_sample_plain(*sa))
+    assert metrics.kernel_launches("bsdf.disney", "op") == {"eval": 2, "sample": 2}
 
 
 @pytest.mark.gpu
@@ -509,17 +510,16 @@ def test_cell_path_bit_equal_to_the_plain_route(cuda, fresh, monkeypatch, cell):
     kernels never launch and the shading kernel does."""
     prog, wl, _ = _program(cell, 16 if cell == "bench_100k.batch" else 32, "cuda")
     n = wl["frames_per_call"] if cell != "veach.pt_nee" else 2
-    pt_rgb.SHADE_KERNEL.reset_counts()
-    got = prog.call(prog.new_film(11), n)[0].hdr
+    with metrics.recording():
+        got = prog.call(prog.new_film(11), n)[0].hdr
     torch.cuda.synchronize()
-    launches = dict(planar.DISNEY_KERNEL.launches)
+    launches = metrics.kernel_launches("bsdf.disney", "op")
     if wl["integrator"] == "pt_rgb":
-        assert not launches and pt_rgb.SHADE_KERNEL.launches
+        assert not launches and metrics.kernel_launches("pt.shade", "entry")
     else:
         assert launches.get("eval", 0) > 0 and launches.get("sample", 0) > 0
-    kernel = planar.DISNEY_KERNEL
+    monkeypatch.setattr(planar.DISNEY_KERNEL, "launch", lambda *a: pytest.fail("launched"))
     monkeypatch.setattr(planar, "DISNEY_KERNEL", SimpleNamespace(  # the plain route on the card
         evaluate_pdf=planar.disney_evaluate_pdf_plain, sample=planar.disney_sample_plain))
     want = prog.call(prog.new_film(11), n)[0].hdr
     assert torch.equal(got, want) and float(want.abs().sum()) > 0
-    assert dict(kernel.launches) == launches

@@ -70,15 +70,22 @@ def _kernel_inputs(scene, o, d, shared):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shared", [True, False], ids=["camera", "deep"])
-def test_kernel_matches_plain_on_cuda(host, shared, cuda):
+def test_kernel_matches_plain_on_cuda(host, shared, cuda, monkeypatch):
+    """The kernel, by one launch of 5,000 live lanes on the card, equals
+    the plain version lane for lane."""
     scene = device_scene(host, "cuda")
     o, d = _rays(host, 5000, 7, shared)  # 20 tiles, the last one partial
     args = _kernel_inputs(scene, o.cuda(), d.cuda(), shared)
-    before, width_before = ct.KERNEL.launches, ct.KERNEL.launches_by_width[5000]
+    launches, launch = [], ct.KERNEL.launch
+
+    def recorded(entry, device, *a):
+        launches.append((entry, device.type, a[4]))  # a[4]: n_valid
+        launch(entry, device, *a)
+
+    monkeypatch.setattr(ct.KERNEL, "launch", recorded)
     got = ct.KERNEL(*args)
     torch.cuda.synchronize()
-    assert ct.KERNEL.launches == before + 1
-    assert ct.KERNEL.launches_by_width[5000] == width_before + 1
+    assert launches == [("cluster_trace_launch", "cuda", 5000)]
     want = ct.cluster_trace_plain(*args)
     assert int((want[1] >= 0).sum()) > 500
     for g, w in zip(got, want):
@@ -156,7 +163,9 @@ def test_kernel_matches_plain_with_tmax_on_sorted_veach_wavefront(cuda):
 def test_capped_trace_matches_cpu(cuda):
     """trace_clustered with tmax + active + cap_frac (sorted, with a cap
     that cuts active lanes) on CUDA equals the same trace on the CPU
-    (plain version) lane for lane."""
+    (plain version) lane for lane; on CUDA its one `trace.kernel` span
+    launched the kernel at the capacity."""
+    from ti_raytrace_tpu_torch import metrics
     from ti_raytrace_tpu_torch.examples.scenes import veach_host
 
     host = veach_host()
@@ -165,9 +174,14 @@ def test_capped_trace_matches_cpu(cuda):
         scene = device_scene(host, dev)
         o, d, tmax = _veach_shadow_wavefront(scene, host, 40000, 8)
         active = torch.from_numpy(np.random.default_rng(3).random(40000) < 0.6).to(dev)
-        before = ct.KERNEL.launches
-        out[dev] = ct.trace_clustered(scene, o, d, tmax=tmax, active=active, cap_frac=0.5)
-        assert ct.KERNEL.launches == before + (dev == "cuda")
+        metrics.clear_spans()
+        with metrics.recording():
+            out[dev] = ct.trace_clustered(scene, o, d, tmax=tmax, active=active, cap_frac=0.5)
+        if dev == "cuda":
+            assert sum(metrics.kernel_launches("trace.kernel", "n_valid").values()) == 1
+            (span,) = [r for r in metrics.spans() if r.name == "trace.kernel"]
+            assert span.attrs["n_pad"] == 20224
+        metrics.clear_spans()
     assert ct.capacity_lanes(40000, 0.5) == 20224
     for g, w in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
@@ -176,7 +190,7 @@ def test_capped_trace_matches_cpu(cuda):
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "order", "device", "tmax", "supers",
                                  "no_supers"])
-def test_kernel_wrapper_rejects_bad_inputs(host, bad):
+def test_kernel_wrapper_rejects_bad_inputs(host, monkeypatch, bad):
     """The wrapper checks device, dtype, shape and contiguity before any
     build or launch, the tmax operand's too."""
     scene = device_scene(host, "cpu")
@@ -196,10 +210,9 @@ def test_kernel_wrapper_rejects_bad_inputs(host, bad):
         args[8] = None
     else:
         args[5] = args[5].to("meta")
-    before = ct.KERNEL.launches
+    monkeypatch.setattr(ct.KERNEL, "launch", lambda *a: pytest.fail("launched"))
     with pytest.raises(ValueError, match="cluster_trace"):
         ct.KERNEL(*args)
-    assert ct.KERNEL.launches == before
 
 
 def test_plain_version_finds_closest_hits(host):

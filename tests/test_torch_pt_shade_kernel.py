@@ -34,7 +34,6 @@ import pytest
 import torch
 
 from ti_raytrace_tpu_torch import metrics
-from ti_raytrace_tpu_torch.bsdf import planar
 from ti_raytrace_tpu_torch.bsdf.planar import glass_sample
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.core import rng
@@ -75,8 +74,6 @@ def cuda():
 @pytest.fixture
 def fresh():
     metrics.clear_spans()
-    pt_rgb.SHADE_KERNEL.reset_counts()
-    planar.DISNEY_KERNEL.reset_counts()
     yield
     metrics.clear_spans()
 
@@ -188,18 +185,26 @@ def _carry_equal(got, want):
 
 
 def _both(monkeypatch, inputs, nee, corrected, plain=pt_rgb._shade_plain):
-    """(_shade's carry, plain's carry, the two fakes, the Disney kernel's
-    launches during the `_shade` call) on the same inputs."""
+    """(_shade's carry, plain's carry, the two fakes, the launches during
+    the `_shade` call, from its spans: {"shade": by entry, "disney": by
+    op}) on the same inputs."""
     carry, u, t, prim, uv, attr, ls, sh_prim = inputs
-    fakes, outs, disney = [], [], None
+    fakes, outs = [], []
     for fn in (pt_rgb._shade, plain):
         fake = _FakeNee(ls, sh_prim)
         fake.patch(monkeypatch, pt_rgb)
         fake.patch(monkeypatch, frozen)
-        outs.append(fn(FAKE_SCENE, carry, u, t, prim, uv, attr, nee, corrected))
+        if fn is pt_rgb._shade:
+            metrics.clear_spans()
+            with metrics.recording():
+                outs.append(fn(FAKE_SCENE, carry, u, t, prim, uv, attr, nee, corrected))
+            launched = dict(shade=metrics.kernel_launches("pt.shade", "entry"),
+                            disney=metrics.kernel_launches("bsdf.disney", "op"))
+            metrics.clear_spans()
+        else:
+            outs.append(fn(FAKE_SCENE, carry, u, t, prim, uv, attr, nee, corrected))
         fakes.append(fake)
-        disney = dict(planar.DISNEY_KERNEL.launches) if disney is None else disney
-    return outs[0], outs[1], fakes, disney
+    return outs[0], outs[1], fakes, launched
 
 
 def _kinds(inputs):
@@ -241,8 +246,9 @@ def test_synthetic_lanes_cover_every_kind():
 @pytest.mark.parametrize("nee", [False, True])
 @pytest.mark.parametrize("n", [1, 31, 700])
 def test_cpu_takes_the_plain_twin(fresh, monkeypatch, n, nee, corrected):
-    """CPU tensors go to the plain twin: no build, no launch, and the
-    pre-change function's bits, shadow rays included."""
+    """CPU tensors go to the plain twin: the pre-change function's bits,
+    shadow rays included (that the CPU route loads no library is a case of
+    tests/test_torch_launcher.py)."""
     inputs = shade_inputs(n, seed=n)
     got, want, fakes, _ = _both(monkeypatch, inputs, nee, corrected, plain=frozen._shade)
     _carry_equal(got, want)
@@ -251,7 +257,6 @@ def test_cpu_takes_the_plain_twin(fresh, monkeypatch, n, nee, corrected):
         assert _bits_equal(fakes[0].pos[0], fakes[1].pos[0])
         assert _bits_equal(fakes[0].sh_o[0], fakes[1].sh_o[0])
     assert got["origin"].device.type == "cpu"
-    assert not pt_rgb.SHADE_KERNEL.launches and pt_rgb.SHADE_KERNEL._lib is None
 
 
 @pytest.mark.parametrize("nee", [False, True])
@@ -278,10 +283,11 @@ def _slots(inputs, tail):
     return ins
 
 
-def test_wrapper_checks_raise(fresh):
+def test_wrapper_checks_raise(fresh, monkeypatch):
     """A wrong dtype, shape or device mix, a non-tensor or a non-CUDA
     device raises ValueError before any build or launch."""
     k = pt_rgb.SHADE_KERNEL
+    monkeypatch.setattr(k, "launch", lambda *a: pytest.fail("launched"))
     good = _slots(shade_inputs(16, seed=3), tail=True)
     with pytest.raises(ValueError, match="CUDA"):
         k.check("tail", good)
@@ -309,7 +315,6 @@ def test_wrapper_checks_raise(fresh):
         k.shade(carry, u, t, prim, uv, attr)
     with pytest.raises(ValueError, match="CUDA"):
         k.head(carry, t, prim, attr)
-    assert not k.launches and k._lib is None
 
 
 def test_wrapper_hands_the_kernel_its_strides(fresh, monkeypatch):
@@ -363,10 +368,10 @@ def test_wrapper_hands_the_kernel_its_strides(fresh, monkeypatch):
     read = [name for i, (name, _, _) in enumerate(pt_rgb._SLOTS) if words[3 * i]]
     assert mode == pt_rgb._HEAD and read == ["origin", "direction", "t", "prim", "attr", "alive"]
     assert pos.shape == (3, n) and is_disney.shape == (1, n) and is_disney.dtype == torch.bool
-    assert k.launches == {"tail": 1, "full": 1, "head": 1}
+    assert [s[1] for s in seen] == [pt_rgb._TAIL, pt_rgb._FULL, pt_rgb._HEAD]
     empty = shade_inputs(0, seed=4)
     k.shade(*empty[:6])
-    assert len(seen) == 3 and k.launches["full"] == 1  # zero lanes launch nothing
+    assert len(seen) == 3  # zero lanes launch nothing
 
 
 def test_build_hash_covers_the_headers():
@@ -393,7 +398,9 @@ def test_cpu_frame_keeps_film_and_torch_calls(fresh, monkeypatch, cell):
     """A 16^2 frame of PT (merged, dense tracer) and of PT+NEE on the CPU:
     the film equals the frozen pre-change reference's replay of the same
     call, and the count of top-level torch calls equals the same call with
-    the integrator wired to the plain twin directly, as before the router."""
+    the integrator wired to the plain twin directly, as before the router;
+    nothing launches."""
+    monkeypatch.setattr(pt_rgb.SHADE_KERNEL, "launch", lambda *a: pytest.fail("launched"))
     prog, wl, config = _program(cell, 16, "cpu")
     out = {}
     counted = count_ops(lambda: out.__setitem__("film", prog.call(prog.new_film(5), 1)[0]))
@@ -405,7 +412,6 @@ def test_cpu_frame_keeps_film_and_torch_calls(fresh, monkeypatch, cell):
     before = count_ops(lambda: out.__setitem__("before", prog.call(prog.new_film(5), 1)[0]))
     assert torch.equal(out["before"].hdr, out["film"].hdr)
     assert counted == before and counted.get("pt.shade", 0) > 0
-    assert not pt_rgb.SHADE_KERNEL.launches
 
 
 def test_route_share_reader(fresh, monkeypatch):
@@ -452,14 +458,14 @@ def test_kernel_bit_equal(cuda, fresh, monkeypatch, n, nee, corrected):
     lanes of every kind; under NEE also the head's hit positions (sample_li's
     input) and the shadow rays' origins."""
     inputs = shade_inputs(n, seed=n + 7 * nee + 3 * corrected, device="cuda")
-    got, want, fakes, disney = _both(monkeypatch, inputs, nee, corrected)
+    got, want, fakes, launched = _both(monkeypatch, inputs, nee, corrected)
     torch.cuda.synchronize()
     _carry_equal(got, want)
     if nee:
         assert _bits_equal(fakes[0].pos[0], fakes[1].pos[0])
         assert _bits_equal(fakes[0].sh_o[0], fakes[1].sh_o[0])
-    assert pt_rgb.SHADE_KERNEL.launches == ({"head": 1, "tail": 1} if nee else {"full": 1})
-    assert not disney  # the kernel route makes no Disney dispatch
+    assert launched["shade"] == ({"head": 1, "tail": 1} if nee else {"full": 1})
+    assert not launched["disney"]  # the kernel route makes no Disney dispatch
     if n >= 1024:
         assert all(v > 0 for v in _kinds(inputs).values())
 
@@ -479,10 +485,10 @@ def test_kernel_nee_term_is_exercised(cuda, fresh, monkeypatch):
 
 @pytest.mark.gpu
 def test_zero_lanes_launch_nothing(cuda, fresh, monkeypatch):
+    monkeypatch.setattr(pt_rgb.SHADE_KERNEL, "launch", lambda *a: pytest.fail("launched"))
     for nee in (False, True):
         got, want, _, _ = _both(monkeypatch, shade_inputs(0, device="cuda"), nee, False)
         assert all(got[k].shape == want[k].shape for k in CARRY)
-    assert not pt_rgb.SHADE_KERNEL.launches
 
 
 @pytest.mark.gpu
@@ -542,10 +548,11 @@ def test_every_shading_call_of_a_frame(cuda, fresh, monkeypatch, name, corrected
     assert nee == (name == "veach_bdpt")
     calls = []
     _compare_every_call(monkeypatch, calls)
-    pt_rgb.render_frame(scene, spec, cam, 3, rng.PRNGKey(9), nee=nee, corrected=corrected)
+    with metrics.recording():
+        pt_rgb.render_frame(scene, spec, cam, 3, rng.PRNGKey(9), nee=nee, corrected=corrected)
     torch.cuda.synchronize()
     assert len(calls) > 3
-    launches = pt_rgb.SHADE_KERNEL.launches
+    launches = metrics.kernel_launches("pt.shade", "entry")
     assert launches == ({"head": len(calls), "tail": len(calls)} if nee
                         else {"full": len(calls)})
 
@@ -559,15 +566,16 @@ def test_cell_path_bit_equal_to_the_plain_route(cuda, fresh, monkeypatch, cell):
     launched in the first only, and no Disney kernel."""
     prog, wl, _ = _program(cell, 16 if cell.endswith(".batch") else 32, "cuda")
     n = wl["frames_per_call"] if cell != "veach.pt_nee" else 2
-    got = prog.call(prog.new_film(11), n)[0].hdr
+    with metrics.recording():
+        got = prog.call(prog.new_film(11), n)[0].hdr
     torch.cuda.synchronize()
-    launches = dict(pt_rgb.SHADE_KERNEL.launches)
+    launches = metrics.kernel_launches("pt.shade", "entry")
     assert launches.get("tail" if cell == "veach.pt_nee" else "full", 0) > 0
-    assert not planar.DISNEY_KERNEL.launches
+    assert not metrics.kernel_launches("bsdf.disney", "op")
+    monkeypatch.setattr(pt_rgb.SHADE_KERNEL, "launch", lambda *a: pytest.fail("launched"))
     monkeypatch.setattr(pt_rgb, "_shade", pt_rgb._shade_plain)
     want = prog.call(prog.new_film(11), n)[0].hdr
     assert torch.equal(got, want) and float(want.abs().sum()) > 0
-    assert dict(pt_rgb.SHADE_KERNEL.launches) == launches
 
 
 @pytest.mark.gpu

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.tools.profile_bdpt import count_ops
 
@@ -99,24 +100,23 @@ def test_kernel_arithmetic_high_counter_word():
 
 
 def test_uniform_on_cpu_takes_the_plain_twin():
-    """CPU (and None) draws go to `uniform_plain`: no launch, no build, the
-    same bits; an unknown device raises rather than falling back."""
+    """CPU (and None) draws go to `uniform_plain`: the same bits (that the
+    CPU route loads no library is a case of tests/test_torch_launcher.py);
+    an unknown device raises rather than falling back."""
     key = key_chain(0)
-    rng.UNIFORM_KERNEL.reset_counts()
     want = rng.uniform_plain(key, (8, 513))
     for device in (None, "cpu", torch.device("cpu")):
         got = rng.uniform(key, (8, 513), device=device)
         assert got.device.type == "cpu" and torch.equal(got, want)
-    assert rng.UNIFORM_KERNEL.launches == 0 and not rng.UNIFORM_KERNEL.launches_by_width
     with pytest.raises(NotImplementedError):
         rng.uniform(key, (8, 513), device="meta")
 
 
-def test_kernel_wrapper_checks_raise():
+def test_kernel_wrapper_checks_raise(monkeypatch):
     """A non-CUDA device or a key that is not a host tensor of shape (2,)
     raises before any build or launch."""
     k = rng.UNIFORM_KERNEL
-    k.reset_counts()
+    monkeypatch.setattr(k, "launch", lambda *a: pytest.fail("launched"))
     key = key_chain(0)
     with pytest.raises(ValueError, match="CUDA"):
         k(key, (8, 16), torch.device("cpu"))
@@ -126,14 +126,13 @@ def test_kernel_wrapper_checks_raise():
                 key.to("meta")):
         with pytest.raises(ValueError, match="shape"):
             k(bad, (8, 16), torch.device("cuda"))
-    assert k.launches == 0 and k._lib is None
 
 
 def test_plain_draw_torch_calls():
     """The plain twin's top-level torch calls per draw, counted as
-    tools/profile_bdpt.py counts a frame's (tools/host_calls.py takes the
-    difference to the kernel's draw as the calls the kernel saves); the
-    count does not depend on the shape."""
+    tools/profile_bdpt.py counts a frame's (the difference to the kernel's
+    draw is the calls the kernel saves); the count does not depend on the
+    shape."""
     key = key_chain(0)
     counts = {shape: sum(count_ops(lambda s=shape: rng.uniform_plain(key, s)).values())
               for shape in ((3,), (8, 513))}
@@ -146,15 +145,17 @@ def test_plain_draw_torch_calls():
 
 def _kernel_vs_plain(key, shape):
     """The kernel through `uniform` on the card against `uniform_plain` on
-    the CPU, moved to the card: equal bit for bit.  Returns the draw."""
-    k = rng.UNIFORM_KERNEL
-    n0 = k.launches
-    got = rng.uniform(key, shape, device="cuda")
+    the CPU, moved to the card: equal bit for bit, by one launch.  Returns
+    the draw."""
+    metrics.clear_spans()
+    with metrics.recording():
+        got = rng.uniform(key, shape, device="cuda")
     torch.cuda.synchronize()
     want = rng.uniform_plain(key, shape).cuda()
     assert got.dtype == torch.float32 and got.shape == shape and got.is_contiguous()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert k.launches == n0 + 1
+    assert metrics.kernel_launches("rng.uniform", "n") == {got.numel(): 1}
+    metrics.clear_spans()
     return got
 
 
@@ -186,24 +187,27 @@ def test_kernel_grid_stride(cuda):
 
 
 @pytest.mark.gpu
-def test_zero_elements_launch_nothing(cuda):
-    k = rng.UNIFORM_KERNEL
-    k.reset_counts()
+def test_zero_elements_launch_nothing(cuda, monkeypatch):
+    monkeypatch.setattr(rng.UNIFORM_KERNEL, "launch", lambda *a: pytest.fail("launched"))
     for shape in ((0,), (8, 0)):
         u = rng.uniform(key_chain(0), shape, device="cuda")
         assert u.shape == shape and u.device.type == "cuda" and u.dtype == torch.float32
-    assert k.launches == 0
 
 
 @pytest.mark.gpu
 def test_launches_counted_by_width(cuda):
+    """The `rng.uniform` spans count the draws by elements drawn, whatever
+    form the device is given in."""
     k = rng.UNIFORM_KERNEL
-    k.reset_counts()
     key = key_chain(0)
-    rng.uniform(key, (8, 100), device="cuda")
-    rng.uniform(key, (800,), device=torch.device("cuda"))
-    rng.uniform(key, (2, 64), device="cuda:0")
-    assert k.launches == 3 and dict(k.launches_by_width) == {800: 2, 128: 1}
+    metrics.clear_spans()
+    with metrics.recording():
+        rng.uniform(key, (8, 100), device="cuda")
+        rng.uniform(key, (800,), device=torch.device("cuda"))
+        rng.uniform(key, (2, 64), device="cuda:0")
+        rng.uniform(key, (0,), device="cuda")
+    assert metrics.kernel_launches("rng.uniform", "n") == {800: 2, 128: 1}
+    metrics.clear_spans()
     assert k.build_info is not None and k.build_info.path
 
 

@@ -15,11 +15,16 @@ path-traced scenes of the dense tracer (`ops/dense_trace.py`):
 cornell_box and single_model under `pt_rgb`, sky_dome and spectral_box
 under the hero-wavelength spectral path tracer (`integrators/pt_spec`);
 and prism_rainbow under spectral BDPT (`integrators/bdpt_spec`), with the
-debug AOVs (`integrators/debug`), the golden gates (`tools/golden.py`),
-the BDPT strategy decomposition (`tools/bdpt_decompose.py`) and the speed
-benchmark (`tools/bench.py`, run by `bench_torch.py`).  Both tracers
-run on the card as hand-written CUDA kernels, each with a plain PyTorch
-twin that CPU tensors take: the cluster traversal
-(`csrc/cluster_trace.cu`, wrapped by `ops/cluster_trace.py`) and the
-dense sweep (`csrc/dense_trace.cu`, wrapped by `ops/dense_trace.py`).
+debug AOVs (`integrators/debug`), the golden gates (`tools/golden.py`)
+and the BDPT strategy decomposition (`tools/bdpt_decompose.py`); the
+speed benchmark is `benchmark/run.py` beside the package.  Five
+hand-written CUDA kernels run on the card, each with a plain PyTorch twin
+that CPU tensors take: the cluster traversal (`csrc/cluster_trace.cu`,
+bound in `ops/cluster_trace.py`), the dense sweep (`csrc/dense_trace.cu`,
+`ops/dense_trace.py`), the threefry draw (`csrc/rng.cu`, `core/rng.py`),
+the Disney BSDF (`csrc/disney.cu`, `bsdf/planar.py`) and the path
+tracer's shading (`csrc/pt_shade.cu`, `integrators/pt_rgb.py`).  Each
+binding enters its library through the one launcher,
+`ops/cuda_build.Launcher`; the spans of `metrics` are the record of
+their launches.
 """

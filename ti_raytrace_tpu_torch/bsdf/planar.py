@@ -10,14 +10,12 @@ calls a call), which the kernels equal on the card bit for bit.  Each
 dispatch is a span "bsdf.disney" (op eval or sample, route kernel or
 plain, width)."""
 
-import collections
-import ctypes
-
 import torch
 
 from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.core.constants import PI, TWO_PI
 from ti_raytrace_tpu_torch.ops import planar as pv
+from ti_raytrace_tpu_torch.ops.cuda_build import I32, I64, PTR, Launcher
 from ti_raytrace_tpu_torch.utils import microfacet as mf
 from ti_raytrace_tpu_torch.utils.geometry import schlick
 
@@ -73,35 +71,16 @@ def disney_evaluate_pdf_plain(n, v, l, metallic, roughness, true_pdf: bool = Fal
     return torch.where(valid, brdf, 0.0), torch.where(valid, pdf, -1.0)
 
 
-class _DisneyKernel:
-    """ctypes binding of csrc/disney.cu.  `launches` counts kernel launches
-    by op ("eval", "sample"); the wrapper adds to it per launch and nowhere
-    else, and `reset_counts` zeroes it."""
+_VEC, _LANE = [PTR, I64, I64], [PTR, I64]  # a (3, N) input with its strides, an (N,) one
 
-    def __init__(self):
-        self.launches = collections.Counter()
-        self.build_info = None
-        self._lib = None
 
-    def reset_counts(self):
-        self.launches.clear()
+class _DisneyKernel(Launcher):
+    """csrc/disney.cu: one launch a call of either entry."""
 
-    def library(self):
-        if self._lib is None:
-            from ti_raytrace_tpu_torch.ops import cuda_build
-
-            lib, self.build_info = cuda_build.load("disney.cu")
-            p, i = ctypes.c_void_p, ctypes.c_longlong
-            vec, lane = [p, i, i], [p, i]
-            lib.disney_evaluate_pdf_launch.argtypes = (
-                vec * 3 + lane * 2 + [ctypes.c_int, p, i, p])
-            lib.disney_evaluate_pdf_launch.restype = ctypes.c_int
-            lib.disney_sample_launch.argtypes = vec * 3 + lane * 2 + [p, i, p]
-            lib.disney_sample_launch.restype = ctypes.c_int
-            lib.disney_error_string.argtypes = [ctypes.c_int]
-            lib.disney_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    SOURCE = "disney.cu"
+    ENTRIES = {"disney_evaluate_pdf_launch": _VEC * 3 + _LANE * 2 + [I32, PTR, I64, PTR],
+               "disney_sample_launch": _VEC * 3 + _LANE * 2 + [PTR, I64, PTR]}
+    ERROR = "disney_error_string"
 
     @staticmethod
     def check(name, vecs, lanes):
@@ -137,20 +116,13 @@ class _DisneyKernel:
         device, count = self.check(f"disney {op}", vecs, lanes)
         out = torch.empty((rows, count), dtype=torch.float32, device=device)
         if count:
-            lib = self.library()
             args = []
             for t in vecs:
                 args += [t.data_ptr(), *t.stride()]
             for t in lanes:
                 args += [t.data_ptr(), t.stride()[0]]
-            launch = lib.disney_evaluate_pdf_launch if op == "eval" else lib.disney_sample_launch
-            with torch.cuda.device(device):
-                err = launch(*args, *flags, out.data_ptr(), count,
-                             torch.cuda.current_stream(device).cuda_stream)
-            if err != 0:
-                raise RuntimeError(f"disney {op} kernel launch failed: "
-                                   + lib.disney_error_string(err).decode())
-            self.launches[op] += 1
+            self.launch("disney_evaluate_pdf_launch" if op == "eval" else "disney_sample_launch",
+                        device, *args, *flags, out.data_ptr(), count)
         return out
 
     def evaluate_pdf(self, n, v, l, metallic, roughness, true_pdf: bool = False):

@@ -14,13 +14,12 @@ twin, which runs the same hash over an iota with int64 tensors masked to
 32 bits (torch has no full uint32 arithmetic).  Both give the same bits.
 """
 
-import collections
-import ctypes
 import math
 
 import torch
 
 from ti_raytrace_tpu_torch import metrics
+from ti_raytrace_tpu_torch.ops.cuda_build import I64, PTR, U32, Launcher
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -100,35 +99,12 @@ UNIFORM_INT_OPS = 75
 UNIFORM_ALU_OPS = 43
 
 
-class _UniformKernel:
-    """ctypes binding of csrc/rng.cu.  `launches` counts kernel launches
-    and `launches_by_width` the same launches by elements drawn; the
-    wrapper adds to both per launch and nowhere else, and `reset_counts`
-    zeroes both."""
+class _UniformKernel(Launcher):
+    """csrc/rng.cu: one launch a draw."""
 
-    def __init__(self):
-        self.launches = 0
-        self.launches_by_width = collections.Counter()
-        self.build_info = None
-        self._lib = None
-
-    def reset_counts(self):
-        self.launches = 0
-        self.launches_by_width.clear()
-
-    def library(self):
-        if self._lib is None:
-            from ti_raytrace_tpu_torch.ops import cuda_build
-
-            lib, self.build_info = cuda_build.load("rng.cu")
-            p = ctypes.c_void_p
-            lib.threefry_uniform_launch.argtypes = [p, ctypes.c_uint32, ctypes.c_uint32,
-                                                    ctypes.c_longlong, p]
-            lib.threefry_uniform_launch.restype = ctypes.c_int
-            lib.threefry_uniform_error_string.argtypes = [ctypes.c_int]
-            lib.threefry_uniform_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    SOURCE = "rng.cu"
+    ENTRIES = {"threefry_uniform_launch": [PTR, U32, U32, I64, PTR]}
+    ERROR = "threefry_uniform_error_string"
 
     def __call__(self, key, shape, device) -> torch.Tensor:
         """uniform(key, shape) drawn by the kernel into a new float32
@@ -148,15 +124,7 @@ class _UniformKernel:
         if n == 0:
             return out
         k1, k2 = _words(key)
-        lib = self.library()
-        with torch.cuda.device(device):
-            err = lib.threefry_uniform_launch(out.data_ptr(), k1, k2, n,
-                                              torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError("threefry_uniform kernel launch failed: "
-                               + lib.threefry_uniform_error_string(err).decode())
-        self.launches += 1
-        self.launches_by_width[n] += 1
+        self.launch("threefry_uniform_launch", out.device, out.data_ptr(), k1, k2, n)
         return out
 
 
@@ -168,11 +136,14 @@ def uniform(key, shape, device=None) -> torch.Tensor:
     CUDA device, `uniform_plain` on the CPU (None: the CPU); any other
     device raises.  The draw is a span "rng.uniform" (metrics.span), so a
     reader of a trace can attribute the ctypes launch, which the profiler
-    ties to no torch call."""
+    ties to no torch call; a recording span carries the elements drawn,
+    `n`."""
     dev = device
     if not isinstance(dev, torch.device):  # a torch.device costs a torch call to construct
         dev = torch.device("cpu" if device is None else device)
-    with metrics.span("rng.uniform"):
+    with metrics.span("rng.uniform") as sp:
+        if sp.id is not None:
+            sp.attrs["n"] = math.prod(shape)
         if dev.type == "cuda":
             return UNIFORM_KERNEL(key, shape, dev)
         if dev.type == "cpu":

@@ -40,8 +40,6 @@ PRESORT_HALF, TRACE0_COMPACT, NEE_FROM_EMITTER_PARITY).
 """
 
 import array
-import collections
-import ctypes
 
 import torch
 
@@ -54,6 +52,7 @@ from ti_raytrace_tpu_torch.camera import (CameraSpec, morton_pixel_order, ray_di
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.ops import planar as pv
+from ti_raytrace_tpu_torch.ops.cuda_build import F32, I32, I64, PTR, Launcher
 from ti_raytrace_tpu_torch.ops.shading import decode_hit
 from ti_raytrace_tpu_torch.scene.packs import PRIM_A
 from ti_raytrace_tpu_torch.scene.sample_planar import sample_li
@@ -144,33 +143,14 @@ _SLOTS = (
 _FULL, _HEAD, _TAIL = 0, 1, 2  # the kernel's modes
 
 
-class _ShadeKernel:
-    """ctypes binding of csrc/pt_shade.cu.  `launches` counts kernel
-    launches by entry ("full", "head", "tail"); the wrapper adds to it per
-    launch and nowhere else, and `reset_counts` zeroes it."""
+class _ShadeKernel(Launcher):
+    """csrc/pt_shade.cu: one launch a shading step (full, or NEE's head and
+    tail), and the probe of its powf / expf."""
 
-    def __init__(self):
-        self.launches = collections.Counter()
-        self.build_info = None
-        self._lib = None
-
-    def reset_counts(self):
-        self.launches.clear()
-
-    def library(self):
-        if self._lib is None:
-            from ti_raytrace_tpu_torch.ops import cuda_build
-
-            lib, self.build_info = cuda_build.load("pt_shade.cu")
-            p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.pt_shade_launch.argtypes = [p, i, i, n, p, p, n, p]
-            lib.pt_shade_launch.restype = i
-            lib.pt_math_launch.argtypes = [i, ctypes.c_float, p, p, n, p]
-            lib.pt_math_launch.restype = i
-            lib.pt_shade_error_string.argtypes = [i]
-            lib.pt_shade_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    SOURCE = "pt_shade.cu"
+    ENTRIES = {"pt_shade_launch": [PTR, I32, I32, I64, PTR, PTR, I64, PTR],
+               "pt_math_launch": [I32, F32, PTR, PTR, I64, PTR]}
+    ERROR = "pt_shade_error_string"
 
     @staticmethod
     def check(op, tensors):
@@ -209,7 +189,6 @@ class _ShadeKernel:
         out = torch.empty((*shape, n), dtype=_F32, device=device)
         flags = torch.empty((flag_rows, n), dtype=_BOOL, device=device)
         if n:
-            lib = self.library()
             words = array.array("q")  # the kernel's words, read during the call
             for (_, r, _), x in zip(_SLOTS, tensors):
                 if x is None:
@@ -218,18 +197,8 @@ class _ShadeKernel:
                     words.extend((x.data_ptr(), 0, *x.stride()))
                 else:
                     words.extend((x.data_ptr(), *x.stride()))
-            args = (words.buffer_info()[0], mode, int(bool(corrected)), int(n_lights),
-                    out.data_ptr(), flags.data_ptr(), n)
-            if device.index == torch.cuda.current_device():
-                err = lib.pt_shade_launch(*args, torch._C._cuda_getCurrentRawStream(device.index))
-            else:
-                with torch.cuda.device(device):
-                    err = lib.pt_shade_launch(*args,
-                                              torch._C._cuda_getCurrentRawStream(device.index))
-            if err != 0:
-                raise RuntimeError(f"pt shade {op} kernel launch failed: "
-                                   + lib.pt_shade_error_string(err).decode())
-            self.launches[op] += 1
+            self.launch("pt_shade_launch", device, words.buffer_info()[0], mode,
+                        int(bool(corrected)), int(n_lights), out.data_ptr(), flags.data_ptr(), n)
         return out, flags
 
     @staticmethod
@@ -276,14 +245,8 @@ class _ShadeKernel:
             raise ValueError("pt shade math: a contiguous float32 CUDA tensor")
         out = torch.empty_like(x)
         if x.numel():
-            lib = self.library()
-            with torch.cuda.device(x.device):
-                err = lib.pt_math_launch(int(exponent is not None), exponent or 0.0,
-                                         x.data_ptr(), out.data_ptr(), x.numel(),
-                                         torch._C._cuda_getCurrentRawStream(x.device.index))
-            if err != 0:
-                raise RuntimeError("pt shade math launch failed: "
-                                   + lib.pt_shade_error_string(err).decode())
+            self.launch("pt_math_launch", x.device, int(exponent is not None), exponent or 0.0,
+                        x.data_ptr(), out.data_ptr(), x.numel())
         return out
 
 
@@ -297,20 +260,20 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
     device, the plain twin otherwise.  On the kernel route nee=False is
     one launch; nee=True a head launch, sample_li and the shadow trace in
     torch as in the twin, then a tail launch.  Each launch is a `pt.shade`
-    span (route kernel, width)."""
+    span (route kernel, width, entry full, head or tail)."""
     if t.device.type != "cuda":
         return _shade_plain(scene, carry, u, t, prim, uv_bary, attr, nee, corrected)
     width = t.shape[0]
     if not nee:
-        with metrics.span("pt.shade", route="kernel", width=width):
+        with metrics.span("pt.shade", route="kernel", width=width, entry="full"):
             return SHADE_KERNEL.shade(carry, u, t, prim, uv_bary, attr, corrected)
-    with metrics.span("pt.shade", route="kernel", width=width):
+    with metrics.span("pt.shade", route="kernel", width=width, entry="head"):
         pos, is_disney = SHADE_KERNEL.head(carry, t, prim, attr)
     with metrics.span("pt.nee"):
         ls = sample_li(scene, pos, u[0:3])
         sh_o = _shadow_origins(ls, is_disney)
     _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
-    with metrics.span("pt.shade", route="kernel", width=width):
+    with metrics.span("pt.shade", route="kernel", width=width, entry="tail"):
         return SHADE_KERNEL.shade(carry, u, t, prim, uv_bary, attr, corrected,
                                   nee=(ls, sh_prim, scene.n_lights))
 

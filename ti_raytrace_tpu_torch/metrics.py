@@ -16,6 +16,12 @@ span's id (the render path's root span is `render.call`, one per call of
 clock of the profiler's events (Unix-epoch ns), so the records lie on
 the device trace's time base.  Otherwise a span costs one flag check and
 makes no torch call.
+
+Launches.  The spans are the only record of a hand kernel's (csrc/)
+launches: ops/cuda_build.Launcher.launch, where every one of them
+launches, counts each on the innermost recording span now open
+(`mark_launch`, the record's `launched`), and `kernel_launches` reads
+those counts.
 """
 
 import collections
@@ -33,7 +39,10 @@ PROFILE_DIR = os.path.join(_ROOT, "chiprun_out", "profile")
 
 MAX_SPANS = 1 << 18  # records kept; later spans of a full buffer are dropped
 
-SpanRecord = collections.namedtuple("SpanRecord", "id parent call name t0_ns t1_ns attrs")
+# launched: the hand-kernel launches made while the span was the innermost
+# recording one (mark_launch)
+SpanRecord = collections.namedtuple("SpanRecord", "id parent call name t0_ns t1_ns attrs launched",
+                                    defaults=(0,))
 
 _recording = 0     # open recording() blocks
 _open = []         # the recording spans now open, innermost last
@@ -46,7 +55,7 @@ class span:
     Records only while a profiler session is open or inside `recording()`
     (see the module docstring)."""
 
-    __slots__ = ("name", "attrs", "id", "parent", "call", "t0_ns", "_range")
+    __slots__ = ("name", "attrs", "id", "parent", "call", "t0_ns", "launched", "_range")
 
     def __init__(self, name: str, **attrs):
         self.name = name
@@ -60,6 +69,7 @@ class span:
         self.id = next(_ids)
         self.parent = outer.id if outer else None
         self.call = outer.call if outer else self.id
+        self.launched = 0
         _open.append(self)
         self.t0_ns = time.time_ns()  # the span holds its profiler range
         self._range = torch._C._profiler._RecordFunctionFast(self.name)
@@ -74,7 +84,7 @@ class span:
         _open.pop()
         if len(_buffer) < MAX_SPANS:
             _buffer.append(SpanRecord(self.id, self.parent, self.call, self.name, self.t0_ns,
-                                      t1_ns, self.attrs))
+                                      t1_ns, self.attrs, self.launched))
         return False
 
 
@@ -140,6 +150,30 @@ def spans() -> list:
 
 def clear_spans():
     _buffer.clear()
+
+
+def mark_launch():
+    """Count one hand-kernel launch on the innermost recording span now open
+    (none open: nothing is recorded).  Called by ops/cuda_build.Launcher.launch
+    alone, after the launch returned 0."""
+    if _open:
+        _open[-1].launched += 1
+
+
+def kernel_launches(name: str, by: str) -> collections.Counter:
+    """The hand-kernel launches made inside the recorded spans named `name`,
+    counted by the value of their attribute `by` (trace.kernel: n_valid,
+    the live lanes; dense_trace._sweep and rng.uniform: n; bsdf.disney: op;
+    pt.shade: entry).  Raises where the buffer filled up, which would
+    undercount."""
+    if len(_buffer) >= MAX_SPANS:
+        raise RuntimeError(f"metrics.kernel_launches: the span buffer is full ({MAX_SPANS} "
+                           f"spans), later launches went unrecorded")
+    counts = collections.Counter()
+    for r in _buffer:
+        if r.name == name and r.launched:
+            counts[r.attrs[by]] += r.launched
+    return counts
 
 
 def current_span():

@@ -46,13 +46,11 @@ BF16_SLAB, TILE_WIDE*, ...) are measured-loss or diagnostic paths of the
 TPU kernel and stay there.
 """
 
-import collections
-import ctypes
-
 import torch
 
 from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.core import constants as C
+from ti_raytrace_tpu_torch.ops.cuda_build import I32, PTR, Launcher
 
 TILE = 256       # rays per tile (one CUDA block)
 GROUP = 32       # clusters per supercluster of the front-to-back order
@@ -306,35 +304,13 @@ def cluster_trace_plain(o, d, n_valid: int, bounds, order, tri, origin_mt: bool,
             best_v.reshape(n_pad), visited)
 
 
-class _ClusterTraceKernel:
-    """ctypes binding of csrc/cluster_trace.cu.  `launches` counts kernel
-    launches and `launches_by_width` the same launches by live lanes
-    (n_valid); the wrapper adds to both per launch and nowhere else, and
-    `reset_counts` zeroes both."""
+class _ClusterTraceKernel(Launcher):
+    """csrc/cluster_trace.cu: one launch over a padded planar wavefront."""
 
-    def __init__(self):
-        self.launches = 0
-        self.launches_by_width = collections.Counter()
-        self.build_info = None
-        self._lib = None
-
-    def reset_counts(self):
-        self.launches = 0
-        self.launches_by_width.clear()
-
-    def library(self):
-        if self._lib is None:
-            from ti_raytrace_tpu_torch.ops import cuda_build
-
-            lib, self.build_info = cuda_build.load("cluster_trace.cu")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.cluster_trace_launch.argtypes = [p, p, p, i, i, p, p, i, p, i, p, i,
-                                                 p, p, p, p, p, p]
-            lib.cluster_trace_launch.restype = ctypes.c_int
-            lib.cluster_trace_error_string.argtypes = [ctypes.c_int]
-            lib.cluster_trace_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    SOURCE = "cluster_trace.cu"
+    ENTRIES = {"cluster_trace_launch": [PTR, PTR, PTR, I32, I32, PTR, PTR, I32, PTR, I32, PTR,
+                                        I32, PTR, PTR, PTR, PTR, PTR, PTR]}
+    ERROR = "cluster_trace_error_string"
 
     def __call__(self, o, d, n_valid: int, bounds, order, tri, origin_mt: bool, tmax=None,
                  supers=None):
@@ -372,20 +348,12 @@ class _ClusterTraceKernel:
         visited = torch.empty(n_tiles, dtype=torch.int32, device=dev)
         if n_tiles == 0:
             return t, prim, u, v, visited
-        lib = self.library()
-        with torch.cuda.device(dev):
-            err = lib.cluster_trace_launch(
-                o.data_ptr(), d.data_ptr(), None if tmax is None else tmax.data_ptr(),
-                n_pad, n_valid, bounds.data_ptr(), supers.data_ptr(), nc,
-                order.data_ptr(), int(order.shape[0] > 1), tri.data_ptr(),
-                int(origin_mt), t.data_ptr(), prim.data_ptr(), u.data_ptr(),
-                v.data_ptr(), visited.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError("cluster_trace kernel launch failed: "
-                               + lib.cluster_trace_error_string(err).decode())
-        self.launches += 1
-        self.launches_by_width[n_valid] += 1
+        self.launch("cluster_trace_launch", dev,
+                    o.data_ptr(), d.data_ptr(), None if tmax is None else tmax.data_ptr(),
+                    n_pad, n_valid, bounds.data_ptr(), supers.data_ptr(), nc,
+                    order.data_ptr(), int(order.shape[0] > 1), tri.data_ptr(), int(origin_mt),
+                    t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+                    visited.data_ptr())
         return t, prim, u, v, visited
 
 

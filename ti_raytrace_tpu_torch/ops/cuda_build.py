@@ -1,10 +1,16 @@
-"""Build and load the package's CUDA kernels (csrc/*.cu).
+"""Build, load and launch the package's CUDA kernels (csrc/*.cu).
 
 Each source is compiled by nvcc into a shared library with a plain C
 interface and loaded with ctypes.  The library is built at first use
 into `<repo>/.cache/torch_kernels/` (a directory .gitignore lists), named
 by a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is reused.  nvcc's own error text is raised as is.
+
+`Launcher` is the one way into a library: each kernel's binding
+subclasses it, names its source and its C entries, and keeps only its
+own input checks, outputs and argument lists.  Each launch is counted
+on the innermost recording span now open (metrics.mark_launch), which
+makes the spans the only record of launches.
 """
 
 import ctypes
@@ -14,6 +20,10 @@ import re
 import shutil
 import subprocess
 import time
+
+import torch
+
+from ti_raytrace_tpu_torch import metrics
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -95,3 +105,56 @@ def load(source: str):
     """(ctypes.CDLL, BuildInfo) for csrc/<source>, building it if needed."""
     info = build(source)
     return ctypes.CDLL(info.path), info
+
+
+# argument types of the C entries
+PTR, I32, I64, U32, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32,
+                           ctypes.c_float)
+
+
+class Launcher:
+    """The binding of one csrc/ library.  A subclass names its SOURCE, its
+    ENTRIES ({C entry: argument types, the stream last}; each entry returns
+    0 or an error code) and its ERROR entry (an error code's text).  The
+    library is built and loaded at the first launch, never at import
+    (`library()` does it ahead, and sets `build_info`).  `loader` stands in
+    for `load` (nvcc, then ctypes.CDLL): source -> (library, BuildInfo),
+    so that a test can hand in a fake library."""
+
+    SOURCE = ""
+    ENTRIES = {}
+    ERROR = ""
+
+    def __init__(self, loader=None):
+        self._loader = loader or load
+        self._lib = None
+        self.build_info = None
+
+    def library(self):
+        if self._lib is None:
+            lib, info = self._loader(self.SOURCE)
+            for name, argtypes in self.ENTRIES.items():
+                entry = getattr(lib, name)
+                entry.argtypes, entry.restype = argtypes, I32
+            error = getattr(lib, self.ERROR)
+            error.argtypes, error.restype = [I32], ctypes.c_char_p
+            self._lib, self.build_info = lib, info
+        return self._lib
+
+    def launch(self, entry: str, device, *args):
+        """C entry `entry` on `args` and the current raw stream of `device`,
+        a tensor's CUDA device: under a device guard only where that device
+        is not the current one.  A non-zero return raises RuntimeError with
+        the library's own text; a launch that returned 0 is counted on the
+        innermost recording span (metrics.mark_launch)."""
+        fn = getattr(self.library(), entry)
+        index = device.index
+        if index == torch.cuda.current_device():
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            text = getattr(self._lib, self.ERROR)(err).decode()
+            raise RuntimeError(f"{self.SOURCE}: {entry} failed: {text}")
+        metrics.mark_launch()

@@ -30,13 +30,11 @@ reference skips it for scenes without shapes; here the skip is per
 block).
 """
 
-import collections
-import ctypes
-
 import torch
 
 from ti_raytrace_tpu_torch import accel, metrics
 from ti_raytrace_tpu_torch.core import constants as C
+from ti_raytrace_tpu_torch.ops.cuda_build import I32, PTR, Launcher
 from ti_raytrace_tpu_torch.utils.morton import morton3d
 
 BLOCK = 128
@@ -275,34 +273,12 @@ def dense_groups(scene):
     return boxes.contiguous(), torch.cat([tri, padding, spheres]).contiguous()
 
 
-class _DenseSweepKernel:
-    """ctypes binding of csrc/dense_trace.cu.  `launches` counts kernel
-    launches and `launches_by_width` the same launches by lanes; the
-    wrapper adds to both per launch and nowhere else, and `reset_counts`
-    zeroes both."""
+class _DenseSweepKernel(Launcher):
+    """csrc/dense_trace.cu: one launch of the grouped sweep."""
 
-    def __init__(self):
-        self.launches = 0
-        self.launches_by_width = collections.Counter()
-        self.build_info = None
-        self._lib = None
-
-    def reset_counts(self):
-        self.launches = 0
-        self.launches_by_width.clear()
-
-    def library(self):
-        if self._lib is None:
-            from ti_raytrace_tpu_torch.ops import cuda_build
-
-            lib, self.build_info = cuda_build.load("dense_trace.cu")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.dense_sweep_launch.argtypes = [p, p, i, p, i, p, i, p, p, p, p]
-            lib.dense_sweep_launch.restype = ctypes.c_int
-            lib.dense_sweep_error_string.argtypes = [ctypes.c_int]
-            lib.dense_sweep_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+    SOURCE = "dense_trace.cu"
+    ENTRIES = {"dense_sweep_launch": [PTR, PTR, I32, PTR, I32, PTR, I32, PTR, PTR, PTR, PTR]}
+    ERROR = "dense_sweep_error_string"
 
     def __call__(self, o, d, boxes, rows, counts=None):
         """Closest hit of the planar rays o, d (3, N) over the grouped table
@@ -339,18 +315,9 @@ class _DenseSweepKernel:
         prim = torch.empty(n, dtype=torch.int32, device=dev)
         if n == 0:
             return t, prim
-        lib = self.library()
-        with torch.cuda.device(dev):
-            err = lib.dense_sweep_launch(o.data_ptr(), d.data_ptr(), n, boxes.data_ptr(), G,
-                                         rows.data_ptr(), rows.shape[0] - GROUP * G,
-                                         t.data_ptr(), prim.data_ptr(),
-                                         None if counts is None else counts.data_ptr(),
-                                         torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError("dense_sweep kernel launch failed: "
-                               + lib.dense_sweep_error_string(err).decode())
-        self.launches += 1
-        self.launches_by_width[n] += 1
+        self.launch("dense_sweep_launch", dev, o.data_ptr(), d.data_ptr(), n, boxes.data_ptr(),
+                    G, rows.data_ptr(), rows.shape[0] - GROUP * G, t.data_ptr(), prim.data_ptr(),
+                    None if counts is None else counts.data_ptr())
         return t, prim
 
 

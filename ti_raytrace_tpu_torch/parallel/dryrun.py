@@ -196,9 +196,7 @@ def _all_reduce_ms(mesh, n: int, reps: int = COLLECTIVE_REPS) -> float:
 
 def _rank_main(rank, n, out_dir, device, size, frames, sections, timeout, t_spawn):
     """One rank: join the group, render every section, write its files."""
-    from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
-    from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
+    from ti_raytrace_tpu_torch import metrics
     from ti_raytrace_tpu_torch.parallel import shard
 
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // (2 * n)))
@@ -216,24 +214,25 @@ def _rank_main(rank, n, out_dir, device, size, frames, sections, timeout, t_spaw
                 # nothing is compiled at first call on the CPU
                 run_section(section, mesh, WARMUP_SIZE, frames)
             shard._all_reduce(torch.zeros(1, device=mesh.device), mesh)  # start together
-            KERNEL.reset_counts()
-            DENSE_KERNEL.reset_counts()
-            UNIFORM_KERNEL.reset_counts()
+            metrics.clear_spans()
             t0 = time.perf_counter()
-            img, ov = run_section(section, mesh, size, frames)
+            with metrics.recording():  # the spans count the section's launches
+                img, ov = run_section(section, mesh, size, frames)
             _sync(mesh.device)
             seconds = time.perf_counter() - t0
-            widths = sorted(KERNEL.launches_by_width)
-            rng_widths = sorted(UNIFORM_KERNEL.launches_by_width)
+            cluster, dense, draws = (metrics.kernel_launches(name, by)
+                                     for name, by in (("trace.kernel", "n_valid"),
+                                                      ("dense_trace._sweep", "n"),
+                                                      ("rng.uniform", "n")))
+            metrics.clear_spans()
+            widths, rng_widths = sorted(cluster), sorted(draws)
             np.savez(os.path.join(out_dir, f"{section}_{rank}.npz"),
-                     img=img.cpu().numpy(), overflow=ov, launches=KERNEL.launches,
-                     dense_launches=DENSE_KERNEL.launches, rng_launches=UNIFORM_KERNEL.launches,
+                     img=img.cpu().numpy(), overflow=ov, launches=sum(cluster.values()),
+                     dense_launches=sum(dense.values()), rng_launches=sum(draws.values()),
                      widths=np.asarray(widths, np.int64),
-                     width_launches=np.asarray([KERNEL.launches_by_width[w] for w in widths],
-                                               np.int64),
+                     width_launches=np.asarray([cluster[w] for w in widths], np.int64),
                      rng_widths=np.asarray(rng_widths, np.int64),
-                     rng_width_launches=np.asarray(
-                         [UNIFORM_KERNEL.launches_by_width[w] for w in rng_widths], np.int64),
+                     rng_width_launches=np.asarray([draws[w] for w in rng_widths], np.int64),
                      seconds=seconds, start_s=start_s, all_reduce_ms=all_reduce_ms,
                      backend=torch.distributed.get_backend())
     finally:
@@ -319,9 +318,9 @@ def dryrun_multichip(n: int, device="cuda", size: int = 512, frames: int = 16,
             img=img, overflow=want_ov, launches=[int(f["launches"]) for f in rs],
             dense_launches=[int(f["dense_launches"]) for f in rs],
             rng_launches=[int(f["rng_launches"]) for f in rs],
-            launches_by_width=[dict(zip(f["widths"].tolist(), f["width_launches"].tolist()))
+            launches_per_width=[dict(zip(f["widths"].tolist(), f["width_launches"].tolist()))
                                for f in rs],
-            rng_launches_by_width=[dict(zip(f["rng_widths"].tolist(),
+            rng_launches_per_width=[dict(zip(f["rng_widths"].tolist(),
                                             f["rng_width_launches"].tolist())) for f in rs],
             seconds=[float(f["seconds"]) for f in rs],
             frames=frames if section == "merged" else 1, mirror_seconds=mirror_s,

@@ -41,7 +41,7 @@ memory, and from torch.profiler over one more call (one frame of BDPT)
 the device ms/frame and the share of it spent in the sweeps (the dense
 kernel's launches and the kernels of the torch calls inside the
 `dense_trace._sweep` span), with the dense kernel's
-launches per frame.  prism_rainbow is also rendered uncapped (the shadow
+launches per frame counted from those spans.  prism_rainbow is also rendered uncapped (the shadow
 cap's effect) and, with `cluster_tracer()`, a switch local to this tool,
 through the cluster tracer.  chip_smoke.py uses the recorders, the
 comparison and `render_frames`.  Needs a CUDA card.
@@ -56,6 +56,7 @@ import time
 
 import torch
 
+from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.ops import dense_trace as dt
 from ti_raytrace_tpu_torch.tools import sass
 from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_FP32, SM_COUNT, time_ms
@@ -299,8 +300,9 @@ def compare(scene, o, d, shared_origin, reps: int, sm_mhz: float, tmax=None) -> 
 
 def profile_call(render, device) -> dict:
     """One render() under torch.profiler: the device time of all kernels
-    and of those of the sweeps (ms), and the number of
-    `dense_trace._sweep` ranges.  The device time is read from the device
+    and of those of the sweeps (ms), the number of `dense_trace._sweep`
+    ranges and the dense kernel's launches (read from the spans that the
+    open profiler records).  The device time is read from the device
     events themselves (kernels, copies and fills; not the ranges' own
     device-side annotations), so the kernels launched through ctypes,
     which the profiler ties to no torch call, count too.  A sweep's
@@ -310,11 +312,14 @@ def profile_call(render, device) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(device)
+    metrics.clear_spans()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         render()
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = sum(metrics.kernel_launches(SWEEP_RANGE, "n").values())
+    metrics.clear_spans()
 
     def in_sweep(evt):
         parent = evt.cpu_parent
@@ -339,7 +344,7 @@ def profile_call(render, device) -> dict:
             if DENSE_KERNEL_NAME in evt.name:
                 sweep_us += us
     return dict(profiled_wall_ms=wall_ms, device_ms=device_us / 1e3,
-                sweep_device_ms=sweep_us / 1e3, sweeps=sweeps)
+                sweep_device_ms=sweep_us / 1e3, sweeps=sweeps, launches=launches)
 
 
 def _wavefront_line(name, wname, row):
@@ -455,9 +460,7 @@ def main(argv=None):
             print(f"{name}: {n_active} of the packed shadow batch's lanes are active",
                   flush=True)
             del waves
-        dt.DENSE_KERNEL.reset_counts()
         fl, ov, ms_frame, peak = timed_frames(scene, cfg, spec, cam, fl, frames, sdata)
-        launches = dt.DENSE_KERNEL.launches / frames
         # a BDPT frame is ~80,000 torch calls: one frame under the profiler
         prof_frames = 1 if cfg.integrator in BDPT else frames
         prof = profile_call(
@@ -467,7 +470,7 @@ def main(argv=None):
                     device_ms_per_frame=prof["device_ms"] / prof_frames,
                     sweep_device_ms_per_frame=prof["sweep_device_ms"] / prof_frames,
                     sweeps_per_frame=prof["sweeps"] / prof_frames,
-                    kernel_launches_per_frame=launches,
+                    kernel_launches_per_frame=prof["launches"] / prof_frames,
                     sweep_share=prof["sweep_device_ms"] / max(prof["device_ms"], 1e-9),
                     busy_share=prof["device_ms"] / prof["profiled_wall_ms"],
                     hdr_mean=float(fl.hdr.mean()))
@@ -480,7 +483,7 @@ def main(argv=None):
               f"{path['device_ms_per_frame']:.3f} ms/frame (busy {path['busy_share']:.3f} of "
               f"the profiled wall), of it {path['sweep_device_ms_per_frame']:.3f} ms in "
               f"{path['sweeps_per_frame']:g} sweeps (share {path['sweep_share']:.3f}), "
-              f"{launches:g} dense-kernel launches per frame",
+              f"{path['kernel_launches_per_frame']:g} dense-kernel launches per frame",
               flush=True)
         del scene
         torch.cuda.empty_cache()

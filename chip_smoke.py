@@ -12,13 +12,15 @@ the four path-traced scenes of the dense tracer (single_model,
 cornell_box, sky_dome, spectral_box) and the prism dispersion scene under
 spectral BDPT (`bdpt_spec.make_render_frame`, unsliced, the prism_rainbow
 golden path), and the five sharded paths of `parallel/shard.py` on 2
-ranks sharing the card — and holds the five CUDA kernels against their
+ranks sharing the card — and holds the six CUDA kernels against their
 plain PyTorch versions: the cluster kernel (csrc/cluster_trace.cu) in
 every mode the paths use, the dense sweep's kernel (csrc/dense_trace.cu)
 on the dense paths' wavefronts, bit for bit, and the threefry kernel
 (csrc/rng.cu, every draw of every path) bit for bit on every shape the
 paths draw, the Disney and PT shading kernels (csrc/disney.cu,
-csrc/pt_shade.cu) bit for bit on random lanes; and the dense tracer
+csrc/pt_shade.cu) bit for bit on random lanes, the coherence key kernel
+(csrc/coherence_key.cu) bit for bit at every width the cluster paths key;
+and the dense tracer
 against the cluster tracer.  Every path phase also counts the threefry
 kernel's launches in its counted run (they must be > 0) and prints its
 draws per frame by elements drawn.  A counted run records the program's
@@ -32,7 +34,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), its maximum SM
      clock (the threefry kernel's bound), torch/CUDA;
   2. kernel build: csrc/cluster_trace.cu, csrc/dense_trace.cu,
-     csrc/rng.cu, csrc/disney.cu and csrc/pt_shade.cu, one nvcc for each,
+     csrc/rng.cu, csrc/disney.cu, csrc/pt_shade.cu and
+     csrc/coherence_key.cu, one nvcc for each,
      started together with the dense kernel's SASS probes (tools/sass.py),
      timed, with ptxas's registers
      and each dense part's instructions by pipe;
@@ -225,7 +228,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      torch.profiler over SHADE_REPS calls), the wrapper's us per call (CUDA
      events), the plain twin's ms, the bound (SHADE_BYTES a lane at 3.35
      TB/s) and the share; the wrapper's host us a call at SHADE_HOST_LANES
-     lanes; then each pt_rgb path's launches a frame.
+     lanes; then each pt_rgb path's launches a frame;
+ 29. coherence key kernel: csrc/coherence_key.cu (ops/cluster_trace.
+     sort_key on the card) against its plain twin bit for bit, the key and
+     its stable order, on lanes of every kind about each cluster path's
+     scene box at every width the counted runs of phases 4 (the merged
+     batch and one 1-frame preview call), 7 and 10 keyed, padded with an
+     `active` mask and with an `alive` mask; at each path's widest the
+     kernel's us a launch (device time under torch.profiler), the order's
+     ms a call, the plain twin's, the bound (ORDER_BYTES a lane at 3.35
+     TB/s) and the share; the host us a call of each route.
 
 Every wavefront is recorded at the tracer's call of the kernel
 (tools/kernel_wavefronts.py), and the plain version runs on blocks of
@@ -244,9 +256,9 @@ agreement with the oracle per wavefront) and the threefry kernel (launches summe
 over the counted runs of phases 4, 7, 10, 12, 14-16 and 18 and over the
 ranks of phase 24, max_abs_err over phase 26's shapes, ms, plain_ms and
 bound_ms of the (8, 262,144) draw, each shape's row and each path's draws
-per frame) and the Disney kernels and the PT shading kernel (launches
-summed over the counted runs, each entry's row per width, each path's
-launches per frame); the last
+per frame) and the Disney kernels, the PT shading kernel and the
+coherence key kernel (launches summed over the counted runs, each entry's
+or path's rows, each path's launches per frame); the last
 line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
@@ -308,6 +320,13 @@ SHADE_HOST_LANES = 1024
 # bytes a lane (read, written): csrc/pt_shade.cu's header
 SHADE_BYTES = {"full": (198, 78), "head": (37, 13), "tail": (250, 78)}
 SHADE_RUNS = []  # (path, frames, shading kernel launches by entry)
+# phase 29: the coherence key kernel at every width the cluster paths keyed
+# (ORDER_RUNS), timed at the widest of each path over ORDER_REPS launches;
+# 24 B read (o, d), 1 B (a mask) and 8 B written a lane
+ORDER_RUNS = []  # (path, frames, key kernel launches by lanes keyed)
+ORDER_REPS = 50
+ORDER_BYTES = 33
+ORDER_HOST_LANES = 1024
 # a hit against a miss, or against another prim at one t, is an edge case
 # where the ray passes within this barycentric distance of the prim's
 # boundary by the oracle's arithmetic: the kernel's shared-origin form
@@ -349,18 +368,19 @@ def phase_device():
 
 
 def phase_build():
-    """The five kernel sources built at once, one nvcc per source, beside
+    """The six kernel sources built at once, one nvcc per source, beside
     the dense kernel's SASS probes."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ti_raytrace_tpu_torch.bsdf.planar import DISNEY_KERNEL
     from ti_raytrace_tpu_torch.core.rng import UNIFORM_KERNEL
     from ti_raytrace_tpu_torch.integrators.pt_rgb import SHADE_KERNEL
-    from ti_raytrace_tpu_torch.ops.cluster_trace import KERNEL
+    from ti_raytrace_tpu_torch.ops.cluster_trace import COHERENCE_KERNEL, KERNEL
     from ti_raytrace_tpu_torch.ops.dense_trace import DENSE_KERNEL
     from ti_raytrace_tpu_torch.tools import sass
 
-    kernels = (KERNEL, DENSE_KERNEL, UNIFORM_KERNEL, DISNEY_KERNEL, SHADE_KERNEL)
+    kernels = (KERNEL, DENSE_KERNEL, UNIFORM_KERNEL, DISNEY_KERNEL, SHADE_KERNEL,
+               COHERENCE_KERNEL)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels) + 1) as pool:
         probes = pool.submit(sass.dense_counts)
@@ -491,7 +511,8 @@ def _counted():
     the dict it yields then holds each hand kernel's launches in the block,
     read from those spans
     (metrics.kernel_launches): "cluster" by live width, "dense" and "rng" by
-    lanes, "disney" by op, "shade" by entry."""
+    lanes, "disney" by op, "shade" by entry, "order" (the coherence key) by
+    lanes keyed."""
     from ti_raytrace_tpu_torch import metrics
 
     metrics.clear_spans()
@@ -500,7 +521,8 @@ def _counted():
         yield counts
     for key, name, by in (("cluster", "trace.kernel", "n_valid"),
                           ("dense", "dense_trace._sweep", "n"), ("rng", "rng.uniform", "n"),
-                          ("disney", "bsdf.disney", "op"), ("shade", "pt.shade", "entry")):
+                          ("disney", "bsdf.disney", "op"), ("shade", "pt.shade", "entry"),
+                          ("order", "trace.order", "n")):
         counts[key] = metrics.kernel_launches(name, by)
     metrics.clear_spans()
 
@@ -522,6 +544,11 @@ def _rng_counts(tag, path, frames, counts):
     if launches == 0:
         fail(f"the {path} path never launched the threefry kernel")
     RNG_RUNS.append((path, launches, per_frame))
+    if counts.get("order"):
+        order = counts["order"]
+        log(f"{tag} coherence key kernel: {sum(order.values())} launches "
+            f"({sum(order.values()) / frames:g} per frame) over {len(order)} widths")
+        ORDER_RUNS.append((path, frames, dict(order)))
 
 
 def _disney_counts(tag, path, frames, counts):
@@ -552,6 +579,7 @@ def phase_main_path(scene, spec, cam, cfg, sync):
     import torch
 
     from ti_raytrace_tpu_torch import film as film_mod
+    from ti_raytrace_tpu_torch.examples.run import render_batch
     from ti_raytrace_tpu_torch.integrators import pt_rgb
 
     def dispatch(fl):
@@ -588,6 +616,10 @@ def phase_main_path(scene, spec, cam, cfg, sync):
         f"hdr mean {float(hdr.mean()):.5f}")
     per_frame = _log_widths("[4 main]", per_width, TIMED_DISPATCHES * KF)
     _rng_counts("[4 main]", "bench", TIMED_DISPATCHES * KF, counts)
+    with _counted() as counts:  # one update of the preview: a 1-frame call
+        render_batch(scene, cfg, spec, cam, fl, 1, "pt_rgb", cfg.group or 0)
+        sync()
+    _rng_counts("[4 preview]", "bench_preview", 1, counts)
     if kills != 0:
         fail(f"{kills} compaction overflow kills on the main path")
     if not ok_img:
@@ -1771,6 +1803,129 @@ def phase_shade():
     return rows
 
 
+def _box(scene):
+    """The scene's box alone (all that the coherence key reads of it)."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(aabb_min=scene.aabb_min.clone(), aabb_max=scene.aabb_max.clone())
+
+
+def _key_lanes(n, gen, box):
+    """n lanes of every kind about the scene box `box` (aabb_min, aabb_max):
+    origins inside it, in a box three times as wide and parked at 1e9;
+    unit, zero and negative-zero directions; NaN and +-inf coordinates on
+    one lane in 64; with `active` and `alive` masks.  On the card."""
+    import torch
+
+    dev = box.aabb_min.device
+    lo, hi = box.aabb_min[:, None], box.aabb_max[:, None]
+    u = torch.rand(3, n, generator=gen, device=dev)
+    kind = torch.randint(0, 8, (n,), generator=gen, device=dev)
+    o = torch.where(kind == 1, lo + (u * 3 - 1) * (hi - lo), lo + u * (hi - lo))
+    o = torch.where(kind == 2, torch.full_like(o, 1e9), o)
+    d = torch.nn.functional.normalize(torch.randn(3, n, generator=gen, device=dev), dim=0)
+    d = torch.where(kind == 3, torch.where(u < 0.5, 0.0, -0.0), d)
+    special = torch.tensor([float("nan"), float("inf"), float("-inf")], device=dev)
+    odd = torch.randint(0, 64, (2, 3, n), generator=gen, device=dev) == 0
+    pick = torch.randint(0, 3, (2, 3, n), generator=gen, device=dev)
+    o = torch.where(odd[0], special[pick[0]], o)
+    d = torch.where(odd[1], special[pick[1]], d)
+    active = torch.rand(n, generator=gen, device=dev) > 0.25
+    alive = torch.rand(n, generator=gen, device=dev) > 0.3
+    return o, d, active, alive
+
+
+def phase_order(boxes):
+    """Phase 29: the coherence key kernel (ops/cluster_trace.sort_key on the
+    card) against its plain twin bit for bit, key and stable order, on lanes
+    of every kind (`_key_lanes`) about each path's scene box at every width
+    that ORDER_RUNS recorded, padded and with `active`, and with `alive`;
+    at each path's widest: the kernel's us a launch (device time under
+    torch.profiler over ORDER_REPS launches), `_coherence_order`'s us a call
+    (CUDA events), the plain twin's, the bound (ORDER_BYTES a lane at 3.35
+    TB/s) and the share; the host us a `_coherence_order` call at
+    ORDER_HOST_LANES lanes on each route; each path's launches a frame.
+    Returns the rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ti_raytrace_tpu_torch.ops import cluster_trace as ct
+    from ti_raytrace_tpu_torch.tools.kernel_wavefronts import PEAK_BYTES, time_ms
+
+    tag = "[29 coherence key kernel]"
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    k = ct.COHERENCE_KERNEL
+
+    def plain_order(box, o, d, n_pad, active):
+        return torch.sort(ct._sort_key_plain(box, o, d, n_pad, active), stable=True).indices
+
+    rows = []
+    if not ORDER_RUNS:
+        fail("no counted run launched the coherence key kernel")
+    for path, frames, per_n in ORDER_RUNS:
+        box = boxes[path]
+        log(f"{tag} {path}: {sum(per_n.values()) / frames:g} launches a frame over "
+            f"{len(per_n)} widths, {min(per_n)}-{max(per_n)} lanes")
+        for n in sorted(per_n, reverse=True):
+            o, d, active, alive = _key_lanes(n, gen, box)
+            n_pad = -(-n // ct.TILE) * ct.TILE
+            for args in ((n_pad, active, None), (None, None, alive)):
+                got = ct.sort_key(box, o, d, *args)
+                want = ct._sort_key_plain(box, o, d, *args)
+                if not torch.equal(got, want):
+                    fail(f"the coherence key kernel differs from its plain twin on {path}'s "
+                         f"{n}-lane wavefront ({'padded, active' if args[0] else 'alive'})")
+            if not torch.equal(ct._coherence_order(box, o, d, n_pad, active),
+                               plain_order(box, o, d, n_pad, active)):
+                fail(f"the coherence order differs from the plain twin's on {path}'s {n} lanes")
+        n = max(per_n)
+        o, d, active, alive = _key_lanes(n, gen, box)
+        n_pad = -(-n // ct.TILE) * ct.TILE
+        launch = lambda: k(o, d, box.aabb_min, box.aabb_max, n_pad, active)  # noqa: E731
+        launch()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ORDER_REPS):
+                launch()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "coherence_key_kernel" in e.key]
+        profiled = sum(e.count for e in evts)
+        us = (sum(e.self_device_time_total for e in evts) / profiled
+              if profiled else float("nan"))
+        call_ms, _ = time_ms(lambda: ct._coherence_order(box, o, d, n_pad, active), ORDER_REPS)
+        plain_ms, _ = time_ms(lambda: plain_order(box, o, d, n_pad, active), 5)
+        sort_ms, _ = time_ms(lambda: torch.sort(launch(), stable=True), ORDER_REPS)
+        bound_us = n * ORDER_BYTES / PEAK_BYTES * 1e6
+        row = dict(path=path, lanes=n, bit_equal=True, widths=len(per_n),
+                   launches_per_frame=sum(per_n.values()) / frames, kernel_us=us,
+                   profiled_launches=profiled, order_ms=call_ms, key_and_sort_ms=sort_ms,
+                   plain_ms=plain_ms, bound_us=bound_us, bound_by="bytes",
+                   bytes=n * ORDER_BYTES, share=bound_us / us if profiled else None)
+        log(f"{tag} {path} at {n} lanes: bit-equal on {len(per_n)} widths; kernel {us:.3f} us "
+            f"a launch ({profiled} profiled), bound {bound_us:.3f} us by bytes "
+            f"({ORDER_BYTES} B a lane), share {row['share']}; _coherence_order {call_ms:.4f} "
+            f"ms a call (key and torch.sort {sort_ms:.4f}), plain {plain_ms:.4f} ms")
+        rows.append(row)
+    box = boxes[ORDER_RUNS[0][0]]
+    o, d, active, _ = _key_lanes(ORDER_HOST_LANES, gen, box)
+    for route, fn in (("kernel", lambda: ct._coherence_order(box, o, d, ORDER_HOST_LANES, active)),
+                      ("plain", lambda: plain_order(box, o, d, ORDER_HOST_LANES, active))):
+        fn()
+        torch.cuda.synchronize()
+        reps = 2000
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        log(f"{tag} host cost of _coherence_order on the {route} route at {ORDER_HOST_LANES} "
+            f"lanes: {host_us:.2f} us a call (host clock over {reps} calls, no sync between)")
+        rows.append(dict(op=f"host {route}", lanes=ORDER_HOST_LANES, host_us=host_us))
+    return rows
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "ti_raytrace_tpu_torch")):
@@ -1794,6 +1949,8 @@ def main():
     spec, cam = make_camera(scene, cfg, SIZE, SIZE)
     log(f"[3 kernel] scene: {scene.n_prims} prims, {scene.cluster_bounds.shape[1]} "
         f"clusters, built in {time.perf_counter() - t0:.2f} s")
+    boxes = {}  # phase 29: each cluster path's scene box
+    boxes["bench"] = boxes["bench_preview"] = _box(scene)
     max_err, rows, (camera, deep) = phase_kernel(scene, spec, cam, cfg)
     launches, per_frame = phase_main_path(scene, spec, cam, cfg, sync)
     _attach_launches(rows, per_frame)
@@ -1812,6 +1969,7 @@ def main():
     log(f"[6 veach kernel] scene: {vscene.n_prims} prims, {vscene.n_lights} lights, "
         f"{vscene.cluster_bounds.shape[1]} clusters, built in "
         f"{time.perf_counter() - t0:.2f} s")
+    boxes["veach_pt"] = boxes["veach_bdpt"] = _box(vscene)
     err_v, veach_rows, bounce1 = phase_veach_kernel(vscene, vspec, vcam)
     oracle_waves.append(("veach_pt bounce 1 (sorted)", vscene, bounce1[1],
                          dict(tile_order=True)))
@@ -1866,6 +2024,7 @@ def main():
     rng_main = next(r for r in rng_rows if r["shape"] == [8, SIZE * SIZE])
     disney_rows = phase_disney()
     shade_rows = phase_shade()
+    order_rows = phase_order(boxes)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     paths = (("bench", rows), ("veach_pt", veach_rows), ("veach_bdpt", bdpt_rows),
@@ -1933,6 +2092,14 @@ def main():
         "rows": shade_rows,
         "paths": [dict(path=p, frames=f, launches_per_frame={op: c / f for op, c in n.items()})
                   for p, f, n in SHADE_RUNS],
+    }, {
+        "name": "coherence_key",
+        "route": "cuda",
+        "source": "ti_raytrace_tpu_torch/csrc/coherence_key.cu",
+        "replaces": None,  # the JAX package's coherence key is plain XLA
+        "launches": sum(sum(c.values()) for _, _, c in ORDER_RUNS),
+        "library_ms": None,  # no PyTorch call computes a morton code
+        "rows": order_rows,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,6 +1,6 @@
 """The one way into a hand kernel: ops/cuda_build.Launcher, under each of
-the five bindings (the cluster tracer, the dense sweep, the threefry
-draw, the Disney BSDF, the PT shading).
+the six bindings (the cluster tracer, the dense sweep, the threefry
+draw, the Disney BSDF, the PT shading, the coherence sort key).
 
 This file imports neither jax nor the JAX package and needs neither nvcc
 nor a card: a fake library, handed in through the launcher's loader,
@@ -45,10 +45,12 @@ BINDINGS = {
     "rng": ("ti_raytrace_tpu_torch.core.rng", "UNIFORM_KERNEL", "rng.uniform"),
     "disney": ("ti_raytrace_tpu_torch.bsdf.planar", "DISNEY_KERNEL", "bsdf.disney"),
     "pt_shade": ("ti_raytrace_tpu_torch.integrators.pt_rgb", "SHADE_KERNEL", "pt.shade"),
+    "coherence_key": ("ti_raytrace_tpu_torch.ops.cluster_trace", "COHERENCE_KERNEL",
+                      "trace.order"),
 }
 KERNELS = {"cluster_trace": ct.KERNEL, "dense_trace": dt.DENSE_KERNEL,
            "rng": rng.UNIFORM_KERNEL, "disney": planar.DISNEY_KERNEL,
-           "pt_shade": pt_rgb.SHADE_KERNEL}
+           "pt_shade": pt_rgb.SHADE_KERNEL, "coherence_key": ct.COHERENCE_KERNEL}
 
 torch.set_num_threads(2)
 
@@ -115,7 +117,7 @@ def _args(argtypes):
 
 @pytest.fixture(scope="module")
 def imported():
-    """The five modules imported in a fresh process with `cuda_build.load`
+    """The binding modules imported in a fresh process with `cuda_build.load`
     replaced by a recorder: per binding, whether it built or loaded
     anything by then."""
     names = json.dumps({k: v[:2] for k, v in BINDINGS.items()})
@@ -257,9 +259,12 @@ def _cpu_route(name, scene):
         m, r = torch.full((300,), 0.2), torch.full((300,), 0.5)
         planar.disney_evaluate_pdf(n, -d, -d, m, r)
         planar.disney_sample(torch.rand(3, 300), d, n, m, r)
-    else:
+    elif name == "pt_shade":
         carry = pt_rgb._bounce(scene, pt_rgb._new_carry(o, d), rng.PRNGKey(1), 1)
         assert carry["origin"].device.type == "cpu"
+    else:
+        t, prim, _ = ct.trace_clustered(scene, o, d, sort_rays=True, sort_small=True)
+        assert bool((prim == 0).all())
 
 
 @pytest.mark.parametrize("name", BINDINGS)

@@ -95,13 +95,14 @@ def _stable_order(key):
 
 def _sort_carry(scene, carry):
     """Permute the carry into (alive-first, origin morton, direction
-    morton) order: one stable sort of the composed 61-bit key."""
-    from ti_raytrace_tpu_torch.ops.cluster_trace import coherence_key60
+    morton) order: one stable sort of the composed 61-bit key
+    (cluster_trace.sort_key with the alive mask: one launch on the card)."""
+    from ti_raytrace_tpu_torch.ops.cluster_trace import key_route, sort_key
 
-    with metrics.span("trace.order", carry=True):
-        dead = (~carry["alive"]).to(torch.int64)
-        key = coherence_key60(scene, carry["origin"], carry["direction"])
-        return _permute(carry, _stable_order((dead << 60) | key))
+    o = carry["origin"]
+    with metrics.span("trace.order", carry=True, route=key_route(o), n=o.shape[1]):
+        key = sort_key(scene, o, carry["direction"], alive=carry["alive"])
+        return _permute(carry, _stable_order(key))
 
 
 # ---------------------------------------------------------------- bounce

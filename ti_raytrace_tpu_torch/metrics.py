@@ -164,7 +164,7 @@ def kernel_launches(name: str, by: str) -> collections.Counter:
     """The hand-kernel launches made inside the recorded spans named `name`,
     counted by the value of their attribute `by` (trace.kernel: n_valid,
     the live lanes; dense_trace._sweep and rng.uniform: n; bsdf.disney: op;
-    pt.shade: entry).  Raises where the buffer filled up, which would
+    pt.shade: entry; trace.order: n, the lanes keyed).  Raises where the buffer filled up, which would
     undercount."""
     if len(_buffer) >= MAX_SPANS:
         raise RuntimeError(f"metrics.kernel_launches: the span buffer is full ({MAX_SPANS} "

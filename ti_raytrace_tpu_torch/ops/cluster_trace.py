@@ -29,10 +29,11 @@ in-kernel one-hot matmul), and the analytic spheres are traced densely.
 
 Sorted mode (`sort_rays=True`, the un-presorted deep bounces, NEE
 shadow rays and BDPT's walk and shadow wavefronts): the lanes are
-stable-sorted by their coherence key (`_coherence_order`), gathered into
-planar sorted order, traced with a per-tile order from the sorted tiles'
-mean origins, and the hit record is gathered back through the inverse
-permutation.  The reference's row-record ray layout was a TPU BlockSpec
+stable-sorted by their coherence key (`_coherence_order`: `sort_key`,
+one launch of csrc/coherence_key.cu on CUDA tensors and its plain twin on
+CPU ones, then torch.sort), gathered into planar sorted order, traced
+with a per-tile order from the sorted tiles' mean origins, and the hit
+record is gathered back through the inverse permutation.  The reference's row-record ray layout was a TPU BlockSpec
 artefact; the kernel takes the same planar operands in every mode.
 
 Shadow rays (BDPT) add a per-lane `tmax` bound, which seeds the kernel's
@@ -50,7 +51,7 @@ import torch
 
 from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.core import constants as C
-from ti_raytrace_tpu_torch.ops.cuda_build import I32, PTR, Launcher
+from ti_raytrace_tpu_torch.ops.cuda_build import I32, I64, PTR, Launcher
 
 TILE = 256       # rays per tile (one CUDA block)
 GROUP = 32       # clusters per supercluster of the front-to-back order
@@ -75,24 +76,119 @@ def _coherence_key(scene, o, d):
     return code_o, code_d
 
 
-def coherence_key60(scene, o, d):
+def coherence_key60_plain(scene, o, d):
     """The two coherence keys as one int64 (origin morton << 30 |
     direction morton): ascending order of it is the reference's two-key
-    (origin, direction) lexicographic order."""
+    (origin, direction) lexicographic order.  The plain twin of
+    csrc/coherence_key.cu (~130 torch calls)."""
     key_o, key_d = _coherence_key(scene, o, d)
     return (key_o << 30) | key_d
 
 
-def _coherence_order(scene, o, d, n_pad: int, active=None):
-    """Stable lane order (n_pad,) int64 of the wavefront by coherence_key60.
-    Padding lanes, and lanes outside `active`, take PAD_KEY and sort after
-    every other lane; lanes parked at 1e9 clamp to the top origin cell,
-    after every live lane inside the scene box."""
-    key = coherence_key60(scene, o, d)
+def _sort_key_plain(scene, o, d, n_pad=None, active=None, alive=None):
+    """sort_key in torch ops: coherence_key60_plain, the dead bit, PAD_KEY
+    outside `active` and on the padding lanes."""
+    key = coherence_key60_plain(scene, o, d)
+    if alive is not None:
+        key = ((~alive).to(torch.int64) << 60) | key
     if active is not None:
         key = torch.where(active, key, PAD_KEY)
-    key = torch.nn.functional.pad(key, (0, n_pad - o.shape[1]), value=PAD_KEY)
-    return torch.sort(key, stable=True).indices
+    if n_pad is not None:
+        key = torch.nn.functional.pad(key, (0, n_pad - o.shape[1]), value=PAD_KEY)
+    return key
+
+
+class _CoherenceKeyKernel(Launcher):
+    """csrc/coherence_key.cu: the sort key of a wavefront in one launch."""
+
+    SOURCE = "coherence_key.cu"
+    ENTRIES = {"coherence_key_launch": [PTR, I64, I64, PTR, I64, I64, PTR, I64, PTR, I64,
+                                        PTR, I64, PTR, I64, PTR, I64, I64, PTR]}
+    ERROR = "coherence_key_error_string"
+
+    @staticmethod
+    def check(o, d, lo, hi, n_pad, active, alive):
+        """The CUDA device and N of a valid call; ValueError otherwise."""
+        named = (("o", o, torch.float32), ("d", d, torch.float32),
+                 ("aabb_min", lo, torch.float32), ("aabb_max", hi, torch.float32),
+                 ("active", active, torch.bool), ("alive", alive, torch.bool))
+        for name, x, _ in named:
+            if x is not None and not isinstance(x, torch.Tensor):
+                raise ValueError(f"coherence key: {name} must be a tensor, got "
+                                 f"{type(x).__name__}")
+        device, n = o.device, o.shape[-1]
+        for name, x, dtype in named:
+            if x is None:
+                continue
+            if x.dtype != dtype:
+                raise ValueError(f"coherence key: {name} must be {dtype}, got {x.dtype}")
+            if x.device != device:
+                raise ValueError(f"coherence key: {name} must lie on {device}, got {x.device}")
+            want = (3, n) if name in ("o", "d") else (3,) if name.startswith("aabb") else (n,)
+            if tuple(x.shape) != want:
+                raise ValueError(f"coherence key: {name} must be {want}, got {tuple(x.shape)}")
+        if n_pad < n:
+            raise ValueError(f"coherence key: n_pad {n_pad} is below the {n} lanes")
+        if device.type != "cuda":
+            raise ValueError(f"coherence key: the kernel runs on a CUDA device, got {device}")
+        return device, n
+
+    def __call__(self, o, d, lo, hi, n_pad=None, active=None, alive=None):
+        """The sort key (n_pad,) int64 (n_pad None: N) of the planar wavefront
+        o, d (3, N) in the box lo, hi (3,), read by their strides, by one
+        launch; zero lanes launch nothing."""
+        n_pad = o.shape[-1] if n_pad is None else n_pad
+        device, n = self.check(o, d, lo, hi, n_pad, active, alive)
+        key = torch.empty(n_pad, dtype=torch.int64, device=device)
+        if n_pad:
+            masks = []
+            for m in (active, alive):
+                masks += (0, 0) if m is None else (m.data_ptr(), m.stride()[0])
+            self.launch("coherence_key_launch", device, o.data_ptr(), *o.stride(),
+                        d.data_ptr(), *d.stride(), lo.data_ptr(), lo.stride()[0],
+                        hi.data_ptr(), hi.stride()[0], *masks, key.data_ptr(), n, n_pad)
+        return key
+
+
+COHERENCE_KERNEL = _CoherenceKeyKernel()
+
+
+def key_route(x) -> str:
+    """The coherence key's route for a tensor: "kernel" on a CUDA device,
+    "plain" on the CPU; any other device raises."""
+    if x.device.type == "cuda":
+        return "kernel"
+    if x.device.type == "cpu":
+        return "plain"
+    raise NotImplementedError(f"coherence key: no implementation for {x.device}")
+
+
+def sort_key(scene, o, d, n_pad=None, active=None, alive=None):
+    """The coherence sort key (n_pad,) int64 of the wavefront o, d (3, N)
+    (n_pad None: N): coherence_key60 on each lane, 1 << 60 added on the
+    lanes outside `alive` (dead lanes sort after live ones), PAD_KEY on the
+    lanes outside `active` and on the padding lanes [N, n_pad).  On CUDA
+    tensors one launch of csrc/coherence_key.cu (COHERENCE_KERNEL), on CPU
+    tensors the plain twin; the two give the same bits."""
+    if key_route(o) == "kernel":
+        return COHERENCE_KERNEL(o, d, scene.aabb_min, scene.aabb_max, n_pad, active, alive)
+    return _sort_key_plain(scene, o, d, n_pad, active, alive)
+
+
+def coherence_key60(scene, o, d):
+    """The two coherence keys as one int64 (origin morton << 30 |
+    direction morton), the kernel on CUDA tensors, coherence_key60_plain on
+    CPU tensors (sort_key without masks or padding)."""
+    return sort_key(scene, o, d)
+
+
+def _coherence_order(scene, o, d, n_pad: int, active=None):
+    """Stable lane order (n_pad,) int64 of the wavefront by coherence_key60:
+    the sort key (one launch on the card) and one torch.sort.  Padding
+    lanes, and lanes outside `active`, take PAD_KEY and sort after every
+    other lane; lanes parked at 1e9 clamp to the top origin cell, after
+    every live lane inside the scene box."""
+    return torch.sort(sort_key(scene, o, d, n_pad, active), stable=True).indices
 
 
 def _super_boxes(cb, n_clusters):
@@ -397,7 +493,7 @@ def kernel_inputs(scene, o, d, sort_rays: bool, shared_origin=None, tile_order: 
     n_pad = -(-N // TILE) * TILE
     perm = None
     if sort_rays:
-        with metrics.span("trace.order"):
+        with metrics.span("trace.order", route=key_route(o), n=N):
             perm = _coherence_order(scene, o, d, n_pad, active)
     with metrics.span("trace.pack"):
         rows = [o, d] if tmax is None else [o, d, tmax[None]]

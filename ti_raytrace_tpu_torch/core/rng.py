@@ -12,6 +12,12 @@ on the requested device: on a CUDA device one launch of the hand kernel
 csrc/rng.cu (`UNIFORM_KERNEL`), on the CPU `uniform_plain`, its plain
 twin, which runs the same hash over an iota with int64 tensors masked to
 32 bits (torch has no full uint32 arithmetic).  Both give the same bits.
+
+A `DeviceKey` holds its words in a device tensor instead: `split`,
+`fold_in` and `uniform` then derive and draw on that device (csrc/rng.cu's
+device-key kernels; int64 tensor ops on the CPU), reading the words when
+the work runs.  A render captured into a CUDA graph with such a key draws
+anew from whatever words are written into it before each replay.
 """
 
 import math
@@ -41,9 +47,36 @@ def threefry2x32(k1, k2, x1, x2):
     return x0, y
 
 
+class DeviceKey:
+    """A key whose two words live in `words`, a (2,) int64 tensor on the
+    device that derives and draws with it.  `split` returns a list of
+    DeviceKeys, `fold_in` one, `uniform` draws on the words' device."""
+
+    __slots__ = ("words",)
+
+    def __init__(self, words: torch.Tensor):
+        self.words = words
+
+
 def _words(key):
+    if isinstance(key, DeviceKey):  # the CPU twin's: 0-dim int64 tensors
+        return key.words[0], key.words[1]
     k1, k2 = key.tolist()  # one host read, one top-level torch call
     return int(k1), int(k2)
+
+
+def _device_keys(key: DeviceKey, first: int, num: int) -> list:
+    """Keys threefry(key, (0, first + i)) for i < num, as DeviceKeys."""
+    w = key.words
+    if w.device.type == "cuda":
+        out = torch.empty((num, 2), dtype=torch.int64, device=w.device)
+        KEY_KERNELS.launch("threefry_keys_launch", w.device, w.data_ptr(), out.data_ptr(),
+                           first, num)
+    else:
+        x0, x1 = threefry2x32(w[0], w[1], 0, torch.arange(first, first + num,
+                                                          dtype=torch.int64))
+        out = torch.stack([x0, x1], dim=1)
+    return [DeviceKey(out[i]) for i in range(num)]
 
 
 def _key(w1: int, w2: int) -> torch.Tensor:
@@ -60,7 +93,9 @@ def PRNGKey(seed: int) -> torch.Tensor:
 
 def split(key, num: int = 2) -> torch.Tensor:
     """jax.random.split: (num, 2) new keys (fold-like partitionable form:
-    key i is threefry(key, (0, i)))."""
+    key i is threefry(key, (0, i))); of a DeviceKey, a list of num."""
+    if isinstance(key, DeviceKey):
+        return _device_keys(key, 0, num)
     k1, k2 = _words(key)
     return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
                         dtype=torch.int64)
@@ -68,6 +103,8 @@ def split(key, num: int = 2) -> torch.Tensor:
 
 def fold_in(key, data: int) -> torch.Tensor:
     """jax.random.fold_in with a non-negative 32-bit integer."""
+    if isinstance(key, DeviceKey):
+        return _device_keys(key, int(data) & _M32, 1)[0]
     k1, k2 = _words(key)
     return _key(*threefry2x32(k1, k2, 0, int(data) & _M32))
 
@@ -131,6 +168,29 @@ class _UniformKernel(Launcher):
 UNIFORM_KERNEL = _UniformKernel()
 
 
+class _KeyKernels(Launcher):
+    """csrc/rng.cu's device-key kernels (DeviceKey): the derivation of
+    keys and the draw, each one launch."""
+
+    SOURCE = "rng.cu"
+    ENTRIES = {"threefry_keys_launch": [PTR, PTR, U32, U32],
+               "threefry_uniform_key_launch": [PTR, PTR, I64]}
+    ERROR = "threefry_uniform_error_string"
+
+    def uniform(self, key: DeviceKey, shape, device) -> torch.Tensor:
+        """uniform(key, shape) into a new float32 tensor on `device`, the
+        CUDA device that holds the key's words."""
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+        n = math.prod(out.shape)
+        if n:
+            self.launch("threefry_uniform_key_launch", device, out.data_ptr(),
+                        key.words.data_ptr(), n)
+        return out
+
+
+KEY_KERNELS = _KeyKernels()
+
+
 def uniform(key, shape, device=None) -> torch.Tensor:
     """jax.random.uniform(key, shape, float32) on `device`: the kernel on a
     CUDA device, `uniform_plain` on the CPU (None: the CPU); any other
@@ -145,6 +205,8 @@ def uniform(key, shape, device=None) -> torch.Tensor:
         if sp.id is not None:
             sp.attrs["n"] = math.prod(shape)
         if dev.type == "cuda":
+            if isinstance(key, DeviceKey):
+                return KEY_KERNELS.uniform(key, shape, dev)
             return UNIFORM_KERNEL(key, shape, dev)
         if dev.type == "cpu":
             return uniform_plain(key, shape, dev)

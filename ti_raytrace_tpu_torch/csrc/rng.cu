@@ -36,6 +36,8 @@
 // element index, one element per thread per step, THREADS threads per
 // block; neighbouring threads store neighbouring floats (coalesced).
 // Nothing is read, nothing is allocated and nothing is synchronised.
+// The device-key twins (threefry_uniform_key_kernel, threefry_keys_kernel,
+// below) read the key's two words from device memory instead.
 //
 // Layout: out (n) f32, row-major over the caller's shape.
 
@@ -58,31 +60,66 @@ __device__ __forceinline__ void group(uint32_t& x, uint32_t& y, bool odd) {
     mix(x, y, odd ? 24 : 6);
 }
 
-__global__ void __launch_bounds__(THREADS)
-threefry_uniform_kernel(float* __restrict__ out, uint32_t k1, uint32_t k2, long long n) {
+// Threefry-2x32 of the counter pair (x, y) under the key (k1, k2), in place.
+__device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t& x, uint32_t& y) {
     const uint32_t ks0 = k1, ks1 = k2, ks2 = k1 ^ k2 ^ 0x1BD11BDAu;
+    x += ks0;
+    y += ks1;
+    group(x, y, false);
+    x += ks1;
+    y += ks2 + 1u;
+    group(x, y, true);
+    x += ks2;
+    y += ks0 + 2u;
+    group(x, y, false);
+    x += ks0;
+    y += ks1 + 3u;
+    group(x, y, true);
+    x += ks1;
+    y += ks2 + 4u;
+    group(x, y, false);
+    x += ks2;
+    y += ks0 + 5u;
+}
+
+__device__ __forceinline__ void uniform_into(float* __restrict__ out, uint32_t k1, uint32_t k2,
+                                             long long n) {
     const long long stride = (long long)gridDim.x * THREADS;
     for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
-        uint32_t x = (uint32_t)((unsigned long long)i >> 32) + ks0;
-        uint32_t y = (uint32_t)i + ks1;
-        group(x, y, false);
-        x += ks1;
-        y += ks2 + 1u;
-        group(x, y, true);
-        x += ks2;
-        y += ks0 + 2u;
-        group(x, y, false);
-        x += ks0;
-        y += ks1 + 3u;
-        group(x, y, true);
-        x += ks1;
-        y += ks2 + 4u;
-        group(x, y, false);
-        x += ks2;
-        y += ks0 + 5u;
+        uint32_t x = (uint32_t)((unsigned long long)i >> 32);
+        uint32_t y = (uint32_t)i;
+        threefry(k1, k2, x, y);
         const uint32_t bits = x ^ y;
         out[i] = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
     }
+}
+
+__global__ void __launch_bounds__(THREADS)
+threefry_uniform_kernel(float* __restrict__ out, uint32_t k1, uint32_t k2, long long n) {
+    uniform_into(out, k1, k2, n);
+}
+
+// Device keys (core/rng.DeviceKey): the key's two words are read from
+// device memory (int64, low 32 bits) when the kernel runs, so a render
+// captured into a CUDA graph draws from whatever key was written there
+// before each replay.  The same draw as threefry_uniform_kernel.
+__global__ void __launch_bounds__(THREADS)
+threefry_uniform_key_kernel(float* __restrict__ out, const long long* __restrict__ key,
+                            long long n) {
+    uniform_into(out, (uint32_t)key[0], (uint32_t)key[1], n);
+}
+
+// Key i of `num`: threefry(key, (0, first + i)) as two int64 words, the
+// plain chain's split (first 0) and fold_in (first = data, num 1).
+__global__ void __launch_bounds__(THREADS)
+threefry_keys_kernel(const long long* __restrict__ key, long long* __restrict__ out,
+                     uint32_t first, uint32_t num) {
+    const uint32_t i = blockIdx.x * THREADS + threadIdx.x;
+    if (i >= num) return;
+    uint32_t x = 0u, y = first + i;
+    threefry((uint32_t)key[0], (uint32_t)key[1], x, y);
+    out[2 * i] = (long long)x;
+    out[2 * i + 1] = (long long)y;
 }
 
 extern "C" {
@@ -95,6 +132,23 @@ int threefry_uniform_launch(float* out, unsigned int k1, unsigned int k2, long l
     if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
     threefry_uniform_kernel<<<(unsigned int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
         out, k1, k2, n);
+    return (int)cudaGetLastError();
+}
+
+// The device-key draw on `stream` for n > 0 elements.
+int threefry_uniform_key_launch(float* out, const long long* key, long long n, void* stream) {
+    long long blocks = (n + THREADS - 1) / THREADS;
+    if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+    threefry_uniform_key_kernel<<<(unsigned int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        out, key, n);
+    return (int)cudaGetLastError();
+}
+
+// num > 0 device keys derived from `key` into out (num, 2) on `stream`.
+int threefry_keys_launch(const long long* key, long long* out, unsigned int first,
+                         unsigned int num, void* stream) {
+    threefry_keys_kernel<<<(num + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
+        key, out, first, num);
     return (int)cudaGetLastError();
 }
 

@@ -80,6 +80,20 @@ def spectral_data(cfg, integrator: str, device):
     return None
 
 
+_SPECTRAL = {}  # the spectral_data of each setting and device, built at first use
+
+
+def _spectral_data_cached(cfg, integrator: str, device):
+    """spectral_data(cfg, integrator, device), built once for each value of
+    what it reads (the integrator, the config's sky, walk compaction and
+    shadow cap) and device, then reused."""
+    key = (integrator, tuple(sorted(cfg.sky.items())), cfg.bdpt_walk_compaction,
+           cfg.bdpt_shadow_cap, device)
+    if key not in _SPECTRAL:
+        _SPECTRAL[key] = spectral_data(cfg, integrator, device)
+    return _SPECTRAL[key]
+
+
 def get_integrator(name: str, cfg_sky=None, compaction=None, scene=None, cfg=None):
     """A render_frame(scene, spec, cam, frame, key) -> (W, H, 3) of one
     progressive frame by integrator `name`, as the CLI configures it: the
@@ -111,7 +125,9 @@ def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int 
     """n frames into the film by `integrator` with the scene config's
     schedule: BDPT in 2 slices with the config's walk compaction and
     shadow cap; the spectral BDPT unsliced and the spectral path tracer
-    with `sdata` (`spectral_data` of that integrator); the albedo AOV for
+    with `sdata` (`spectral_data` of that integrator; without it, that of
+    the scene config, built on the scene's device at the first such call
+    and reused by later ones); the albedo AOV for
     `debug`; pt_rgb (NEE by `has_nee_materials`) in merged groups of
     `group` where the scene has a schedule, group > 1 and n is a whole
     number of groups, else frame after frame.  The call is the render path's
@@ -121,6 +137,8 @@ def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int 
             return bdpt_rgb.render_film_frames(
                 scene, spec, cam, fl, n_frames=n, n_slices=2,
                 walk_compaction=cfg.bdpt_walk_compaction, shadow_cap=cfg.bdpt_shadow_cap)
+        if integrator in ("bdpt_spec", "pt_spec") and sdata is None:
+            sdata = _spectral_data_cached(cfg, integrator, scene.device)
         if integrator == "bdpt_spec":
             return bdpt_spec.render_film_frames(scene, spec, cam, fl, sdata, n_frames=n)
         if integrator == "pt_spec":
@@ -186,7 +204,6 @@ def main(argv=None):
         batch = 1
     else:
         batch = cfg.batch or (4 if integrator in BDPT else 8)
-    sdata = spectral_data(cfg, integrator, device)
 
     fl = film_mod.new_film(args.size, args.size, seed=args.seed, device=device)
     if args.checkpoint:
@@ -206,7 +223,7 @@ def main(argv=None):
         until_snap = args.snapshot_every - fl.frame % args.snapshot_every
         n = min(batch, args.frames - fl.frame, until_snap)
         t0 = time.perf_counter()
-        fl, ov = render_batch(scene, cfg, spec, cam, fl, n, integrator, group, sdata)
+        fl, ov = render_batch(scene, cfg, spec, cam, fl, n, integrator, group)
         _sync(device)
         times.append(time.perf_counter() - t0)
         counts.append(n)

@@ -238,7 +238,7 @@ def spectral_box(device="cuda", host=None):
 
 
 def prism_rainbow_host() -> dict:
-    """Host dict of the dispersion demo: prism1.obj (3,151 triangles, no
+    """Host dict of the dispersion demo: prism1.obj (3,152 triangles, no
     smooth normals) under a sphere light and, aimed at the prism along -z,
     a laser of radius 0.1, both of emission (500, 500, 500); spectral pack
     rows."""

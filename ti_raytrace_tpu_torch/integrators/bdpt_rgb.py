@@ -147,28 +147,37 @@ def _walk_width(N: int, dv) -> int:
     return min(N, max(128, (w + 127) // 128 * 128))
 
 
-def _compact_walk_front(st, new_n: int):
+def _compact_walk_front(st, new_n: int, side: str | None = None, depth: int | None = None):
     """Alive-first stable order + prefix of new_n lanes of the walk front.
     Live lanes beyond capacity end their subpath here (a shorter walk:
-    a bias, so the count is returned as a device scalar)."""
+    a bias, so the count is returned as a device scalar).  Runs in the
+    span `bdpt.compact_walk` (the walk's `side` and `depth`, the front's
+    `width_in` and the `capacity` new_n); recording on the card, the span
+    also carries `live`, the front's live lanes as a device scalar, left
+    unread."""
     alive = st["alive"]
-    overflow = torch.clamp(alive.sum() - new_n, min=0)
-    sel = torch.sort((~alive).to(torch.int64), stable=True).indices[:new_n]
-    c = st["beta"].shape[0]  # 3, or 1 on a spectral walk
-    spectral = "lam" in st
-    rows = torch.cat([st["o"], st["d"], st["beta"], st["pdf_fwd"][None],
-                      st["prev_pos"], st["prev_normal"]]
-                     + ([st["lam"][None], st["d65"][None]] if spectral else [])
-                     ).index_select(1, sel)
-    st["o"], st["d"], st["beta"] = rows[0:3], rows[3:6], rows[6:6 + c]
-    st["pdf_fwd"] = rows[6 + c]
-    st["prev_pos"], st["prev_normal"] = rows[7 + c:10 + c], rows[10 + c:13 + c]
-    if spectral:
-        st["lam"], st["d65"] = rows[13 + c], rows[14 + c]
-    st["alive"] = alive.index_select(0, sel)
-    st["lane"] = st["lane"].index_select(0, sel)
-    st["compacted"] = True
-    return overflow
+    with metrics.span("bdpt.compact_walk", side=side, depth=depth, width_in=alive.shape[0],
+                      capacity=new_n) as sp:
+        live = alive.sum()
+        if sp.id is not None and alive.device.type == "cuda":
+            sp.attrs["live"] = live
+        overflow = torch.clamp(live - new_n, min=0)
+        sel = torch.sort((~alive).to(torch.int64), stable=True).indices[:new_n]
+        c = st["beta"].shape[0]  # 3, or 1 on a spectral walk
+        spectral = "lam" in st
+        rows = torch.cat([st["o"], st["d"], st["beta"], st["pdf_fwd"][None],
+                          st["prev_pos"], st["prev_normal"]]
+                         + ([st["lam"][None], st["d65"][None]] if spectral else [])
+                         ).index_select(1, sel)
+        st["o"], st["d"], st["beta"] = rows[0:3], rows[3:6], rows[6:6 + c]
+        st["pdf_fwd"] = rows[6 + c]
+        st["prev_pos"], st["prev_normal"] = rows[7 + c:10 + c], rows[10 + c:13 + c]
+        if spectral:
+            st["lam"], st["d65"] = rows[13 + c], rows[14 + c]
+        st["alive"] = alive.index_select(0, sel)
+        st["lane"] = st["lane"].index_select(0, sel)
+        st["compacted"] = True
+        return overflow
 
 
 def _scatter_drop(base, idx, upd):
@@ -192,7 +201,8 @@ def _walk(scene, origin, direction, beta0, fpdf0, vertex0, max_depth, key,
     for depth in range(1, max_depth):
         with metrics.span("bdpt.walk", side=side, depth=depth, width=st["o"].shape[1]):
             if depth in sched:
-                overflow = overflow + _compact_walk_front(st, _walk_width(N, sched[depth]))
+                overflow = overflow + _compact_walk_front(st, _walk_width(N, sched[depth]),
+                                                          side, depth)
             o_t = pv.where(st["alive"], st["o"], torch.full_like(st["o"], PARK))
         traced = trace_shaded(scene, o_t, st["d"])
         with metrics.span("bdpt.walk", side=side, depth=depth, width=o_t.shape[1]):
@@ -456,9 +466,11 @@ def build_subpaths(scene, o, d, k_eye, k_light, eye_depth: int = EYE_MAX_DEPTH,
         # the fronts of this depth, fused into one wavefront for the trace
         with metrics.span("bdpt.walk", side="fused", depth=depth):
             if do_e and depth in sched_e:
-                overflow = overflow + _compact_walk_front(st_e, _walk_width(N, sched_e[depth]))
+                overflow = overflow + _compact_walk_front(st_e, _walk_width(N, sched_e[depth]),
+                                                          "eye", depth)
             if do_l and depth in sched_l:
-                overflow = overflow + _compact_walk_front(st_l, _walk_width(N, sched_l[depth]))
+                overflow = overflow + _compact_walk_front(st_l, _walk_width(N, sched_l[depth]),
+                                                          "light", depth)
             fronts = [(st, k, light_path) for st, k, light_path, on in
                       ((st_e, k_eye, False, do_e), (st_l, k_lwalk, True, do_l)) if on]
             o_t = [pv.where(st["alive"], st["o"], torch.full_like(st["o"], PARK))
@@ -963,10 +975,11 @@ def render_paths(scene, spec: CameraSpec, cam, frame, key, corrected: bool = Fal
     overflow, a device scalar, with return_overflow).  max_depth caps the
     strategy depth; the walks run max_depth + 2 (eye) and + 1 (light)
     vertices.  spec_ctx: the frame's spectral context (bdpt_spec)."""
-    k_eye, k_light, k_conn = rng.split(key, 3)
-    k_cam, k_ewalk = rng.split(k_eye)
-    o, d = _camera_rays(spec, cam, frame, k_cam)
-    fpdf0 = _camera_dir_pdf(spec, cam, d) if corrected else None
+    with metrics.span("bdpt.camera"):
+        k_eye, k_light, k_conn = rng.split(key, 3)
+        k_cam, k_ewalk = rng.split(k_eye)
+        o, d = _camera_rays(spec, cam, frame, k_cam)
+        fpdf0 = _camera_dir_pdf(spec, cam, d) if corrected else None
     eye, eye_count, light, light_count, overflow = build_subpaths(
         scene, o, d, k_ewalk, k_light, eye_depth=max_depth + 2, light_depth=max_depth + 1,
         fpdf0=fpdf0, corrected=corrected, walk_compaction=walk_compaction,

@@ -143,6 +143,12 @@ def recording():
         _recording -= 1
 
 
+def recording_now() -> bool:
+    """Whether a span opened now records: a profiler session or a
+    recording() block is open."""
+    return bool(_profiler._is_profiler_enabled or _recording)
+
+
 def spans() -> list:
     """The recorded spans (SpanRecord), in the order they closed."""
     return list(_buffer)

@@ -331,14 +331,16 @@ def trace_planar(scene, o, d):
     return _swept(scene, o, d)
 
 
-def _swept(scene, o, d, **attrs):
+def _swept(scene, o, d, active=None, **attrs):
     """`trace_planar` inside the span `dense_trace._sweep`.  Where the span
     records (a profiler open, or `metrics.recording()`), it carries the
     lanes `n`, the table's `groups` and its sphere rows `tail`, besides
     `attrs`; on the card also `counts`, the (5,) int32 device tensor into
-    which the launch adds its (warp, group) counts (`DENSE_KERNEL`), left
-    unread here so that the call reads nothing back.  Otherwise the span
-    adds no torch call and the kernel gets no counts."""
+    which the launch adds its (warp, group) counts (`DENSE_KERNEL`), and,
+    given the mask `active` of a capped sweep's uncapped batch,
+    `n_active`, its active lanes as a device scalar; both are left unread
+    here so that the call reads nothing back.  Otherwise the span adds no
+    torch call and the kernel gets no counts."""
     with metrics.span("dense_trace._sweep") as sp:
         counts = None
         if sp.id is not None:
@@ -348,6 +350,8 @@ def _swept(scene, o, d, **attrs):
             if o.device.type == "cuda":
                 counts = sp.attrs["counts"] = torch.zeros(5, dtype=torch.int32,
                                                           device=o.device)
+                if active is not None:
+                    sp.attrs["n_active"] = active.sum()
         if o.device.type == "cuda":
             if scene.n_prims > accel.DENSE_MAX_PRIMS and scene.dense_rows.shape[0] == 0:
                 raise ValueError(f"dense_trace: a scene of {scene.n_prims} prims, above "
@@ -377,12 +381,13 @@ def trace_planar_capped(scene, o, d, active, cap_frac: float):
     undefined, as `accel.trace` says: those that fit into the prefix
     behind the active ones carry their ray's real hit, the others a miss;
     callers read only the lanes they marked active.  A recording span
-    carries `capped=True` and the width before the cap, `n_uncapped`."""
+    carries `capped=True` and the width before the cap, `n_uncapped`, and
+    on the card `n_active` (`_swept`)."""
     N = o.shape[1]
     W = capacity_lanes(N, cap_frac)
     sel = torch.sort((~active).to(torch.int64), stable=True).indices[:W]
-    t_c, prim_c = _swept(scene, o.index_select(1, sel), d.index_select(1, sel), capped=True,
-                         n_uncapped=N)
+    t_c, prim_c = _swept(scene, o.index_select(1, sel), d.index_select(1, sel), active=active,
+                         capped=True, n_uncapped=N)
     t = torch.full((N,), C.INF, dtype=torch.float32, device=o.device)
     prim = torch.full((N,), -1, dtype=torch.int32, device=o.device)
     t[sel] = t_c

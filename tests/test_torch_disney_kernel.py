@@ -35,7 +35,7 @@ from ti_raytrace_tpu_torch.bsdf import planar
 from ti_raytrace_tpu_torch.core import rng
 from ti_raytrace_tpu_torch.examples import scenes
 from ti_raytrace_tpu_torch.examples.run import render_batch, spectral_data
-from ti_raytrace_tpu_torch.integrators import bdpt_rgb, bdpt_spec, pt_rgb
+from ti_raytrace_tpu_torch.integrators import bdpt_rgb, bdpt_spec, frame_graph, pt_rgb
 from ti_raytrace_tpu_torch.ops import cuda_build
 from ti_raytrace_tpu_torch.tools.profile_bdpt import count_ops
 
@@ -329,8 +329,8 @@ def test_every_call_site_goes_through_the_dispatcher(fresh, monkeypatch, cpu_sce
     bspec, bcam = scenes.make_camera(box, bcfg, 8, 8)
     render_batch(box, bcfg, bspec, bcam, film.new_film(8, 8, seed=1, device="cpu"), 1,
                  "pt_spec", sdata=spectral_data(bcfg, "pt_spec", torch.device("cpu")))
-    bdpt_spec.render_film_frames(box, bspec, bcam, film.new_film(8, 8, seed=1, device="cpu"),
-                                 bdpt_spec.make_render_frame(device="cpu"), n_frames=1)
+    frame_graph.render_film_frames(box, bspec, bcam, film.new_film(8, 8, seed=1, device="cpu"),
+                                   bdpt_spec.make_render_frame(device="cpu"), n_frames=1)
 
     missing = _call_sites() - seen
     assert not missing, f"call sites that did not reach the dispatcher: {sorted(missing)}"

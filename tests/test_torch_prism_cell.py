@@ -11,7 +11,7 @@ on the CPU and without JAX:
     schedule; the bfloat16 control departs from it;
   * the spans this cell adds (`bdpt.spec_ctx`, `bdpt.camera`,
     `bdpt.compact_walk`, `n_active` on the capped sweep, the film and
-    overflow spans of `bdpt_spec.render_film_frames`) carry their
+    overflow spans of `frame_graph.render_film_frames`) carry their
     attributes, and the cell's five readers read None on the CPU and on
     records without them, and what the launches give on faked ones.
 """

@@ -28,6 +28,8 @@ scene's walk compaction and shadow cap, accumulated into the film,
 the scene's emitter scale, walk compaction and shadow cap, `batch` frames
 per call as for BDPT; a scene built without the spectral pack rows renders
 black under it, as in the reference (its emitters carry no power there).
+On a card both BDPT integrators replay every frame after the first from
+one CUDA graph of the frame (`integrators/frame_graph.py`).
 `debug`: the albedo AOV, one frame per call.  A call never crosses a multiple of
 --snapshot-every frames: there the PNG is written, and with --checkpoint
 the film too (an existing checkpoint is resumed: same frame count, same
@@ -59,7 +61,8 @@ from ti_raytrace_tpu_torch import film as film_mod
 from ti_raytrace_tpu_torch import metrics
 from ti_raytrace_tpu_torch.examples.preview import OrbitRig, PygamePreview
 from ti_raytrace_tpu_torch.examples.scenes import EXAMPLES, framing_params, make_camera
-from ti_raytrace_tpu_torch.integrators import bdpt_rgb, bdpt_spec, debug, pt_rgb, pt_spec
+from ti_raytrace_tpu_torch.integrators import (bdpt_rgb, bdpt_spec, debug, frame_graph, pt_rgb,
+                                               pt_spec)
 
 INTEGRATORS = ("pt_rgb", "pt_spec", "bdpt_rgb", "bdpt_spec", "debug")
 BDPT = ("bdpt_rgb", "bdpt_spec")
@@ -114,7 +117,7 @@ def get_integrator(name: str, cfg_sky=None, compaction=None, scene=None, cfg=Non
     bdpt = dict(walk_compaction=cfg.bdpt_walk_compaction if cfg else None,
                 shadow_cap=cfg.bdpt_shadow_cap if cfg else None)
     if name == "bdpt_rgb":
-        return functools.partial(bdpt_rgb.render_frame_sliced, n_slices=2, **bdpt)
+        return bdpt_rgb.sliced_frame(2, **bdpt)
     if name == "bdpt_spec":
         return bdpt_spec.make_render_frame(**(cfg_sky or {}), **bdpt, device=device)
     raise ValueError(f"unknown integrator {name!r} (integrators: {', '.join(INTEGRATORS)})")
@@ -140,7 +143,7 @@ def render_batch(scene, cfg, spec, cam, fl, n: int, integrator: str, group: int 
         if integrator in ("bdpt_spec", "pt_spec") and sdata is None:
             sdata = _spectral_data_cached(cfg, integrator, scene.device)
         if integrator == "bdpt_spec":
-            return bdpt_spec.render_film_frames(scene, spec, cam, fl, sdata, n_frames=n)
+            return frame_graph.render_film_frames(scene, spec, cam, fl, sdata, n_frames=n)
         if integrator == "pt_spec":
             return pt_spec.render_film_frames_spec(scene, sdata, spec, cam, fl, n_frames=n,
                                                    compaction=cfg.compaction)

@@ -44,6 +44,8 @@ conversion to sRGB per lane before the splat and at the end of the frame.
 With `spec_ctx=None` every result is the RGB one, bit for bit.
 """
 
+import functools
+
 import torch
 
 from ti_raytrace_tpu_torch import metrics
@@ -52,6 +54,7 @@ from ti_raytrace_tpu_torch.bsdf.planar import disney_evaluate_pdf, disney_sample
 from ti_raytrace_tpu_torch.camera import CameraSpec, project, ray_directions, ray_origins
 from ti_raytrace_tpu_torch.core import constants as C
 from ti_raytrace_tpu_torch.core import rng
+from ti_raytrace_tpu_torch.integrators import frame_graph
 from ti_raytrace_tpu_torch.ops import planar as pv
 from ti_raytrace_tpu_torch.ops.shading import decode_hit
 from ti_raytrace_tpu_torch.scene.sample_planar import sample_li, sample_light
@@ -1046,21 +1049,31 @@ def render_frame_sliced(scene, spec: CameraSpec, cam, frame, key, n_slices: int 
     return (img, overflow_total) if return_overflow else img
 
 
+_sliced = None  # sliced_frame's frame function of the settings it bound last
+
+
+def sliced_frame(n_slices: int = 2, max_depth: int = MAX_DEPTH, shadow_cap=None,
+                 walk_compaction=None):
+    """render_frame_sliced bound to these settings: a frame function of
+    frame_graph.  The settings of the last call give the same function
+    back, which keeps its FrameGraph across film calls; new settings bind
+    a new one and let the old one and its graph go."""
+    global _sliced
+    settings = dict(n_slices=n_slices, max_depth=max_depth, shadow_cap=shadow_cap,
+                    walk_compaction=walk_compaction)
+    if _sliced is None or _sliced.keywords != settings:
+        _sliced = functools.partial(render_frame_sliced, **settings)
+    return _sliced
+
+
 def render_film_frames(scene, spec: CameraSpec, cam, film, n_frames: int = 4,
                        n_slices: int = 2, max_depth: int = MAX_DEPTH, walk_compaction=None,
                        shadow_cap=None):
     """n progressive frames, each rendered by render_frame_sliced from the
     film's frame index and key, then accumulated (the reference CLI's
-    batch loop).  Returns (film', overflow as an int: one host sync)."""
-    from ti_raytrace_tpu_torch import film as film_mod
-
-    total = torch.zeros((), dtype=torch.int64, device=film.hdr.device)
-    for _ in range(n_frames):
-        img, ov = render_frame_sliced(scene, spec, cam, film.frame, film.key, n_slices,
-                                      max_depth=max_depth, shadow_cap=shadow_cap,
-                                      walk_compaction=walk_compaction, return_overflow=True)
-        with metrics.span("film.accumulate"):
-            film = film_mod.accumulate(film, img)
-            total = total + ov
-    with metrics.span("sync.overflow"):
-        return film, int(total)
+    batch loop).  Returns (film', overflow as an int: one host sync).  On
+    a card, frames of index > 0 replay one CUDA graph of the sliced frame
+    while no span records (frame_graph.render_film_frames)."""
+    return frame_graph.render_film_frames(
+        scene, spec, cam, film, sliced_frame(n_slices, max_depth, shadow_cap, walk_compaction),
+        n_frames)

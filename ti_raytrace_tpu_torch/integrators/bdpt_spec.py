@@ -15,9 +15,9 @@ matmuls at its highest precision; a gather is exact and no matmul that
 TF32 could reach on the card), and XYZ -> sRGB is nine multiply-adds in
 the matrix product's order.  As in the port's bdpt_rgb, the render
 returns its overflow (walk compaction plus capped shadow lanes) with
-`return_overflow`, and there is no jit: on a card, `render_film_frames`
-replays frames of index > 0 from one CUDA graph of the frame
-(`FrameGraph`) instead.
+`return_overflow`, and there is no jit: on a card, the film renderer
+(`frame_graph.render_film_frames`) replays frames of index > 0 from one
+CUDA graph of the frame (`frame_graph.FrameGraph`) instead.
 """
 
 from typing import NamedTuple
@@ -118,77 +118,3 @@ def make_render_frame(emitter_scale: float = 1.0, walk_compaction=None, shadow_c
                                      return_overflow=return_overflow)
 
     return render_frame
-
-
-class FrameGraph:
-    """The spectral BDPT frame of `render_frame` (make_render_frame's) on
-    one scene, camera spec and camera, captured into a CUDA graph and
-    replayed: one graph launch and two key writes a frame in place of the
-    ~18,500 torch calls the host would issue, so the card, not the host,
-    sets the pace.  The capture draws through a DeviceKey, whose words each
-    call writes, and renders a frame of index > 0 (the camera jitter is
-    on; frame 0 renders without it, so it stays outside the graph).  A
-    replay runs the kernels the eager frame launches, with the same
-    arguments: the same bits.  The outputs are the graph's own tensors,
-    overwritten by the next replay."""
-
-    def __init__(self, render_frame, scene, spec: CameraSpec, cam):
-        dev = scene.device
-        self.inputs = (scene, spec, cam)
-        self.words = torch.zeros(2, dtype=torch.int64, device=dev)
-        key = rng.DeviceKey(self.words)
-        # torch's rule for a capture: one run first, on a side stream
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            render_frame(scene, spec, cam, 1, key, return_overflow=True)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.img, self.overflow = render_frame(scene, spec, cam, 1, key,
-                                                   return_overflow=True)
-
-    def renders(self, scene, spec: CameraSpec, cam) -> bool:
-        return self.inputs[0] is scene and self.inputs[1] == spec and self.inputs[2] is cam
-
-    def __call__(self, key):
-        """(img, overflow) of the frame of host key `key` (index > 0)."""
-        k1, k2 = key.tolist()
-        self.words[0].fill_(k1)  # a fill launch each: no host-to-device copy
-        self.words[1].fill_(k2)
-        self.graph.replay()
-        return self.img, self.overflow
-
-
-def _frame_graph(render_frame, scene, spec: CameraSpec, cam) -> FrameGraph:
-    """The renderer's FrameGraph of these inputs, captured at first use;
-    a renderer keeps the graph of the inputs it rendered last."""
-    graph = getattr(render_frame, "frame_graph", None)
-    if graph is None or not graph.renders(scene, spec, cam):
-        render_frame.frame_graph = None  # the old graph's memory goes first
-        graph = render_frame.frame_graph = FrameGraph(render_frame, scene, spec, cam)
-    return graph
-
-
-def render_film_frames(scene, spec: CameraSpec, cam, film, render_frame, n_frames: int = 4):
-    """n progressive frames by `render_frame` (make_render_frame's), each
-    from the film's frame index and key, then accumulated.  Returns
-    (film', overflow as an int: one host sync, the span `sync.overflow`).
-    On a card, frames of index > 0 replay the renderer's FrameGraph,
-    except while spans record (metrics.recording_now), when every frame
-    runs eagerly and records its spans."""
-    from ti_raytrace_tpu_torch import film as film_mod
-
-    graphed = scene.device.type == "cuda" and not metrics.recording_now()
-    total = torch.zeros((), dtype=torch.int64, device=film.hdr.device)
-    for _ in range(n_frames):
-        if graphed and film.frame != 0:
-            img, ov = _frame_graph(render_frame, scene, spec, cam)(film.key)
-        else:
-            img, ov = render_frame(scene, spec, cam, film.frame, film.key,
-                                   return_overflow=True)
-        with metrics.span("film.accumulate"):
-            film = film_mod.accumulate(film, img)
-            total = total + ov
-    with metrics.span("sync.overflow"):
-        return film, int(total)

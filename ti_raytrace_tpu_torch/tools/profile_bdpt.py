@@ -10,8 +10,9 @@ warm-up frame (the kernel build on a fresh checkout) the tool reports,
 per frame:
 
   * wall and process CPU time over `--frames` uninstrumented frames, and
-    the peak device memory of those frames;
-  * top-level torch calls of one frame (attribute reads excluded), in
+    the peak device memory of those frames (on a card they replay the
+    frame's CUDA graph, as the CLI's frames after the first do);
+  * top-level torch calls of one eager frame (attribute reads excluded), in
     total and by the program's spans (`count_ops`), counted by a
     TorchFunctionMode; a call is charged to the innermost span open when
     it runs (a pdf evaluated inside a walk step counts as bdpt.pdf);

@@ -259,9 +259,10 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
     """The post-trace half of _bounce (see _shade_plain): the kernel
     (SHADE_KERNEL, csrc/pt_shade.cu) when the hit record lies on a CUDA
     device, the plain twin otherwise.  On the kernel route nee=False is
-    one launch; nee=True a head launch, sample_li and the shadow trace in
-    torch as in the twin, then a tail launch.  Each launch is a `pt.shade`
-    span (route kernel, width, entry full, head or tail)."""
+    one launch; nee=True a head launch, sample_li and the shadow trace
+    (`_shadow_trace`) in torch as in the twin, then a tail launch.  Each
+    launch is a `pt.shade` span (route kernel, width, entry full, head or
+    tail)."""
     if t.device.type != "cuda":
         return _shade_plain(scene, carry, u, t, prim, uv_bary, attr, nee, corrected)
     width = t.shape[0]
@@ -273,7 +274,7 @@ def _shade(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
     with metrics.span("pt.nee"):
         ls = sample_li(scene, pos, u[0:3])
         sh_o = _shadow_origins(ls, is_disney)
-    _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
+    sh_prim = _shadow_trace(scene, sh_o, ls["direction"])
     with metrics.span("pt.shade", route="kernel", width=width, entry="tail"):
         return SHADE_KERNEL.shade(carry, u, t, prim, uv_bary, attr, corrected,
                                   nee=(ls, sh_prim, scene.n_lights))
@@ -288,6 +289,14 @@ def _shadow_origins(ls, is_disney):
     slab test."""
     return torch.where(is_disney, pv.offset_ray(ls["pos"], ls["normal"]),
                        torch.full_like(ls["pos"], 1e9))
+
+
+def _shadow_trace(scene, sh_o, sh_d):
+    """NEE's shadow rays traced in the span `pt.shadow` (width): the dense
+    sweep, or the cluster tracer's `trace.*` spans, below it.  Returns the
+    prim each ray hits first."""
+    with metrics.span("pt.shadow", width=sh_o.shape[1]):
+        return trace(scene, sh_o, sh_d, sort_small=True)[1]
 
 
 def _shade_plain(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
@@ -346,7 +355,7 @@ def _shade_plain(scene, carry, u, t, prim, uv_bary, attr, nee: bool = False,
             ndl_light = pv.dot(ls["normal"], ls["direction"])
             nee_geo_ok = is_disney & (ndl_surf < 0.0) & (ndl_light > 0.0)
             sh_o = _shadow_origins(ls, is_disney[None])
-        _, sh_prim = trace(scene, sh_o, ls["direction"], sort_small=True)
+        sh_prim = _shadow_trace(scene, sh_o, ls["direction"])
         with metrics.span("pt.nee"):
             unoccluded = sh_prim == prim
             nee_brdf, nee_pdf = disney_evaluate_pdf(fnormal, -d, -ls["direction"],
@@ -473,12 +482,17 @@ def _phase_width(n: int, dv: int) -> int:
     return min(n, max(1024, n // dv))
 
 
-def _compact(carry, new_n: int):
+def _compact(carry, new_n: int, sp=None):
     """Shrink the wavefront to its live lanes (alive-first stable order,
     then the first new_n).  Returns (carry, overflow): live paths beyond
-    new_n are killed and counted (a device int64 scalar)."""
+    new_n are killed and counted (a device int64 scalar).  Given the
+    span `sp` of the compaction, a recording one also carries `live`,
+    the live lanes before it, as a device scalar left unread."""
     alive = carry["alive"]
-    overflow = torch.clamp(alive.sum() - new_n, min=0)
+    live = alive.sum()
+    if sp is not None and sp.id is not None:
+        sp.attrs["live"] = live
+    overflow = torch.clamp(live - new_n, min=0)
     order = _stable_order((~alive).to(torch.int64))
     return _permute(carry, order[:new_n]), overflow
 
@@ -633,10 +647,10 @@ def trace_paths(scene, o, d, key, max_depth: int = MAX_DEPTH, compaction=None,
             depth0, carry = start(carry)
         else:
             with metrics.span("pt.flush_compact", width_in=carry["alive"].shape[0],
-                              width_out=width):
+                              width_out=width) as sp:
                 carry, accum_full = _flush(carry, accum_full, identity=(phase == 1),
                                            scene=scene)
-                carry, ov = _compact(carry, width)
+                carry, ov = _compact(carry, width, sp)
                 overflow = overflow + ov
             depth0 = b0
         carry = _while_bounces(scene, carry, key, depth0, min(b1, max_depth), nee,
